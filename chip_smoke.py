@@ -1,0 +1,595 @@
+#!/usr/bin/env python3
+"""Build legslam_torch's CUDA kernels and drive the port's mapping step on
+one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Phases (each prints one or more lines; any failure exits non-zero):
+  1. the card (nvidia-smi name and power limit), torch and CUDA versions;
+  2. the kernel build: seconds, and registers / shared memory / spills per
+     kernel from ptxas;
+  3. at the bench smoke shape (320x192, 20k gaussians in capacity 2^15,
+     max_pairs 2^16, chunk 256), in float32 and bfloat16 pair features:
+     the "cuda" backend's render and gradients against the "torch"
+     reference compositor, and each kernel against its plain PyTorch
+     version on the inputs the mapping step gives it;
+  4. the main path at Replica scale: 1200x680, 200k gaussians in capacity
+     2^18, 64-D language features, bf16 pair features, binning refreshed
+     every 8 steps with the termination-aware trim of the cached binning
+     and of the fresh one (the schedule of bench.py:366-494); one warm-up
+     group and 2 timed groups of 8 steps, with each kernel's launch count
+     over those 24 steps, then each kernel against its plain version at
+     the main path's shapes, with CUDA-event times and the bound; the SM
+     clock, power draw and temperature are sampled beside the step and
+     the kernel timings;
+  5. a {"kernels": [...]} line, then the card line, then as the last line
+     {"ok": true, "device": {...}}.
+
+It needs a CUDA device and the repository beside it; without either it
+exits non-zero and prints no result. Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# float32 CUDA-core peak and HBM rate of one H100 SXM at its 700 W limit
+# (NVIDIA data sheet, dense)
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+
+# Operations counted per (pair, pixel) for the bound (f32 ops; exp and log1p
+# count as one): every evaluated pair-pixel runs the alpha chain (dx, dy,
+# the 9-op quadratic, exp, the opacity product, the clamp, two tests); a
+# kept one adds log1p, the transmittance add and the termination test; a
+# contributing one adds, in the forward, exp, w, the t_final add and C
+# FMAs, and in the backward exp, w, the C-FMA dot product dw, the prefix,
+# suffix and dalpha arithmetic, plus C FMAs of the dfeats reduction and
+# the dx, dy and 6 moment products.
+OPS_EVAL = 16
+OPS_KEEP = 3
+
+
+def ops_fwd_contrib(c: int) -> int:
+    return 2 * c + 3
+
+
+def ops_bwd_contrib(c: int) -> int:
+    return 4 * c + 24
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+class ClockSampler:
+    """Samples the card's SM clock, power draw and temperature with
+    nvidia-smi every 100 ms while the block runs, so times taken in two
+    calls can be compared against the clocks they ran at. The sampling
+    process is stopped on exit; no samples reads "not measured"."""
+
+    FIELDS = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
+
+    def __enter__(self):
+        self.rows = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", f"--query-gpu={self.FIELDS}",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        for line in out.splitlines():
+            try:
+                self.rows.append([float(x) for x in line.split(",")])
+            except ValueError:
+                continue
+        return False
+
+    def summary(self) -> str:
+        if not self.rows:
+            return "clocks not measured"
+        sm, mx, pw, temp = zip(*self.rows)
+        return (f"SM clock median {statistics.median(sm):.0f} MHz (min "
+                f"{min(sm):.0f}, max possible {max(mx):.0f}), power draw "
+                f"median {statistics.median(pw):.1f} W, temperature max "
+                f"{max(temp):.0f} C, {len(sm)} samples")
+
+
+# --- the bench scene (bench.py:43-93 and :320-341, without JAX) ----------
+
+STEADY_OPACITY_QUANTILES = (
+    0.0039, 0.6319, 0.9997, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0,
+    1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0)
+
+
+def steady_state_scale_clamp(st, pts, fx: float):
+    """Clamp the knn-init log-scales to the mapper's big-point prune bound
+    (screen radius <= 20 px at each point's depth), as a converged store
+    holds (bench.py:43-61)."""
+    z = np.maximum(pts[:, 2], 0.2)
+    smax = torch.as_tensor(np.log((20.0 / 3.0) * z / fx).astype(np.float32),
+                           device=st.params.scaling.device)
+    n = pts.shape[0]
+    sc = st.params.scaling
+    sc[:n] = torch.minimum(sc[:n], smax[:, None])
+    return st
+
+
+def steady_state_opacity(st, rng):
+    """Opacities sampled from a converged store's distribution, stored as
+    logits (bench.py:64-92)."""
+    n = st.params.opacity.shape[0]
+    qs = np.linspace(0.0, 1.0, len(STEADY_OPACITY_QUANTILES))
+    u = rng.uniform(size=n)
+    op = np.interp(u, qs, np.asarray(STEADY_OPACITY_QUANTILES))
+    op = np.clip(op, 1e-4, 1.0 - 1e-4).astype(np.float32)
+    st.params.opacity.copy_(torch.as_tensor(np.log(op / (1.0 - op))[:, None]))
+    return st
+
+
+def make_scene(dev, width, height, n_points, capacity, seed=0):
+    """The bench's synthetic Replica-like cloud and targets."""
+    from legslam_torch.models import gaussians as G
+    from legslam_torch.utils.camera import CameraView
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-3, 3, size=(n_points, 3)).astype(np.float32)
+    pts[:, 2] = rng.uniform(0.5, 8.0, size=n_points).astype(np.float32)
+    cols = rng.uniform(size=(n_points, 3)).astype(np.float32)
+    st = G.create_from_pcd(pts, cols, capacity=capacity, device=dev)
+    st = steady_state_scale_clamp(st, pts, fx=600.0)
+    st = steady_state_opacity(st, rng)
+    view = CameraView.create(np.eye(3, dtype=np.float32),
+                             np.zeros(3, np.float32), width, height,
+                             fx=600.0, fy=600.0, device=dev)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    gt = dict(
+        gt_color=t(rng.uniform(size=(height, width, 3))),
+        gt_lang_feat=t(rng.normal(size=(height, width, 64))),
+        gt_depth=t(rng.uniform(0.5, 8.0, size=(height, width))),
+        mask=torch.ones(height, width, device=dev),
+        bg=torch.zeros(3, device=dev))
+    return st, view, gt
+
+
+def make_cfg(max_pairs, mm_dtype, backend="cuda"):
+    from legslam_torch.config import RasterizeConfig
+    return RasterizeConfig(tile_h=16, tile_w=128, max_span_x=4, max_span_y=8,
+                           chunk=256, tile_batch=16, backend=backend,
+                           max_pairs=max_pairs, mm_dtype=mm_dtype,
+                           power_mode="sep3")
+
+
+class StepLoop:
+    """The bench's mapping-step schedule (bench.py:356-464): binning
+    refreshed every `refresh` steps; the refresh step emits kfin, its
+    binning is trimmed for the reuse steps, and the fresh binning of a
+    group is pre-trimmed with the previous group's kfin (+1 slack chunk)
+    except every 4th group."""
+
+    def __init__(self, st, view, gt, cfg, refresh=8, slack=1,
+                 fresh_max_age=3):
+        from legslam_torch.config import OptimizationParams
+        self.st, self.view, self.gt, self.cfg = st, view, gt, cfg
+        self.opt = OptimizationParams()
+        self.refresh, self.slack, self.fresh_max_age = \
+            refresh, slack, fresh_max_age
+        self.i = 0
+        self.kfin = None
+        self.binning = None
+        self.fresh_age = 0
+
+    def _binning(self):
+        from legslam_torch.ops.rasterize import compute_binning
+        s, v = self.st, self.view
+        return compute_binning(
+            s.params.xyz, torch.exp(s.params.scaling), s.params.rotation,
+            s.valid, v.world_view, v.full_proj, v.tan_fovx, v.tan_fovy,
+            v.width, v.height, self.cfg, max_per_tile=2048,
+            opacity=torch.sigmoid(s.params.opacity[:, 0]))
+
+    def step(self, binning, emit=False):
+        from legslam_torch.mapper.train_step import train_step
+        v, g = self.view, self.gt
+        self.i += 1
+        self.st, aux = train_step(
+            self.st, v.world_view, v.full_proj, v.cam_center, v.tan_fovx,
+            v.tan_fovy, g["gt_color"], g["gt_lang_feat"], g["gt_depth"],
+            g["mask"], g["bg"], float(self.i), 1.0, width=v.width,
+            height=v.height, active_sh_degree=3, opt=self.opt, cfg=self.cfg,
+            max_per_tile=2048, binning=binning, emit_kfin=emit)
+        return aux
+
+    def group(self):
+        """One refresh group; returns the last step's aux."""
+        from legslam_torch.ops.binning import trim_binning
+        cfg = self.cfg
+
+        def trim(b, kfin, slack):
+            return (trim_binning(b[0], kfin, cfg.max_pairs, cfg.chunk,
+                                 slack), b[1])
+        binning = self._binning()
+        if self.kfin is not None and self.fresh_age < self.fresh_max_age:
+            self.fresh_age += 1
+            binning = trim(binning, self.kfin, self.slack + 1)
+        else:
+            self.fresh_age = 0
+        aux = self.step(binning, emit=True)
+        self.kfin = aux.kfin
+        self.binning = trim(binning, self.kfin, self.slack)
+        for _ in range(self.refresh - 1):
+            aux = self.step(self.binning)
+        return aux
+
+
+def capture_kernel_inputs(run):
+    """Run `run()` (one mapping step) and return the arguments its forward
+    and backward kernel wrappers were called with."""
+    from legslam_torch.ops.cuda import composite_bwd as cb
+    seen = {}
+    fwd, bwd = cb.composite_forward, cb.composite_backward
+
+    def rec_fwd(*a):
+        seen["fwd"] = a
+        return fwd(*a)
+
+    def rec_bwd(*a):
+        seen["bwd"] = a
+        return bwd(*a)
+    # the wrappers count their launches on the module attribute, which is
+    # the recorder while it stands in
+    rec_fwd.launches = rec_bwd.launches = 0
+    cb.composite_forward, cb.composite_backward = rec_fwd, rec_bwd
+    try:
+        run()
+    finally:
+        cb.composite_forward, cb.composite_backward = fwd, bwd
+    return seen["fwd"], seen["bwd"]
+
+
+# --- checks --------------------------------------------------------------
+
+def close(a, b, atol, rtol):
+    """max |a - b| and whether |a - b| <= atol + rtol |b| everywhere."""
+    a, b = a.detach().double(), b.detach().double()
+    err = (a - b).abs()
+    return float(err.max()) if err.numel() else 0.0, \
+        bool((err <= atol + rtol * b.abs()).all())
+
+
+def check_kernels(fwd_args, bwd_args, label, card, fails):
+    """Each kernel against its plain version on the same inputs. The two
+    sum in different orders (sequential per pixel and float atomics
+    across pixel blocks in the kernels, cumsum and matmul in the plain
+    versions). Stated tolerances:
+      * forward acc and t_final: atol 3e-5 / rtol 1e-3 (LF channels atol
+        2e-4), the JAX suite's forward tolerance
+        (tests/test_pallas_composite.py), on every pixel but those where
+        the termination test T (1 - alpha) >= 1e-4 of one pair falls
+        within rounding of its threshold and flips: such a pixel ends
+        with T <= 1e-2 in both versions, and at most 1e-4 of the pixels
+        may be such;
+      * kfin: equal on all but 0.5% of tiles, those off by one (the same
+        rounding at a chunk end);
+      * backward dgeo and dfeats: atol 2e-4 x the array's max |plain| /
+        rtol 2e-2, the JAX suite's gradient tolerance
+        (tests/test_pallas_grad.py) scaled to the gradients' magnitude."""
+    from legslam_torch.ops.cuda.composite import (composite_forward,
+                                                  composite_forward_plain)
+    from legslam_torch.ops.cuda.composite_bwd import (
+        composite_backward, composite_backward_plain)
+    acc_k, tfin_k, kfin_k = composite_forward(*fwd_args)
+    torch.cuda.synchronize()
+    acc_p, tfin_p, kfin_p = composite_forward_plain(*fwd_args)
+    torch.cuda.synchronize()
+    atol = torch.full((acc_p.shape[-1],), 3e-5, device=acc_p.device)
+    atol[3:-1] = 2e-4
+    bad = ((acc_k - acc_p).abs() > atol + 1e-3 * acc_p.abs()).any(-1) | \
+        ((tfin_k - tfin_p).abs() > 3e-5 + 1e-3 * tfin_p.abs())
+    n_bad = int(bad.sum())
+    ok_fwd = n_bad <= 1e-4 * bad.numel() and \
+        bool((torch.maximum(tfin_k, tfin_p)[bad] <= 1e-2).all())
+    good = ~bad
+    e_acc = float((acc_k - acc_p)[good].abs().max())
+    e_t = float((tfin_k - tfin_p)[good].abs().max())
+    e_all = float(torch.maximum((acc_k - acc_p).abs().amax(-1),
+                                (tfin_k - tfin_p).abs()).max())
+    dk = (kfin_k.long() - kfin_p.long()).abs()
+    n_kdiff = int((dk > 0).sum())
+    ok5 = int(dk.max()) <= 1 and n_kdiff <= 0.005 * dk.numel()
+    dgeo_k, dfe_k = composite_backward(*bwd_args)
+    torch.cuda.synchronize()
+    dgeo_p, dfe_p = composite_backward_plain(*bwd_args)
+    torch.cuda.synchronize()
+    e_g, ok6 = close(dgeo_k, dgeo_p, 2e-4 * float(dgeo_p.abs().max()), 2e-2)
+    e_f, ok7 = close(dfe_k, dfe_p, 2e-4 * float(dfe_p.abs().max()), 2e-2)
+    print(f"[kernels {label}] fwd max|err| acc {e_acc:.3g} t_final {e_t:.3g}"
+          f" on all but {n_bad}/{bad.numel()} pixels (termination flips; "
+          f"max|err| over all pixels {e_all:.3g}); kfin differs on "
+          f"{n_kdiff}/{dk.numel()} tiles; bwd max|err| dgeo {e_g:.3g} "
+          f"(max|dgeo| {float(dgeo_p.abs().max()):.3g}) dfeats {e_f:.3g} "
+          f"(max|dfeats| {float(dfe_p.abs().max()):.3g}) [{card}]")
+    for ok, what in ((ok_fwd, "acc/t_final"), (ok5, "kfin"), (ok6, "dgeo"),
+                     (ok7, "dfeats")):
+        if not ok:
+            fails.append(f"{label}: {what} outside tolerance")
+    return dict(fwd=e_all, bwd=max(e_g, e_f))
+
+
+def check_backends(st, view, gt, mm_dtype, card, fails):
+    """The "cuda" backend's render and gradients against the "torch"
+    reference compositor on the card: color / depth / final_t atol 3e-5 /
+    rtol 1e-3, LF atol 2e-4 (float32 features); gradients of a loss
+    through the render atol 2e-4 / rtol 2e-2 (tests/test_pallas_grad.py).
+    With bf16 features: color error < 2e-2 and gradient cosine > 0.999
+    (tests/test_mm_dtype.py)."""
+    from legslam_torch.ops.rasterize import render_arrays
+    p = st.params
+    outs, grads = {}, {}
+    for backend in ("torch", "cuda"):
+        cfg = make_cfg(1 << 16, mm_dtype if backend == "cuda" else "float32",
+                       backend)
+        xyz = p.xyz.detach().clone().requires_grad_(True)
+        opl = p.opacity.detach().clone().requires_grad_(True)
+        out = render_arrays(
+            xyz, st.sh(), p.lang_feat, torch.sigmoid(opl[:, 0]),
+            st.scales(), p.rotation, st.valid, view.world_view,
+            view.full_proj, view.cam_center, view.tan_fovx, view.tan_fovy,
+            view.width, view.height, gt["bg"], 3, cfg)
+        loss = (out.color - gt["gt_color"]).abs().mean() + \
+            0.1 * out.depth.mean() + (out.lang_feat ** 2).mean()
+        loss.backward()
+        outs[backend] = out
+        grads[backend] = torch.cat([xyz.grad.ravel(), opl.grad.ravel()])
+    a, b = outs["cuda"], outs["torch"]
+    ga, gb = grads["cuda"], grads["torch"]
+    cos = float(ga.double() @ gb.double() /
+                (ga.double().norm() * gb.double().norm() + 1e-30))
+    e_c = float((a.color - b.color).abs().max().detach())
+    if mm_dtype == "float32":
+        res = [close(a.color, b.color, 3e-5, 1e-3),
+               close(a.depth, b.depth, 3e-5, 1e-3),
+               close(a.final_t, b.final_t, 3e-5, 1e-3),
+               close(a.lang_feat, b.lang_feat, 2e-4, 1e-3),
+               close(ga, gb, 2e-4, 2e-2)]
+        ok = all(r[1] for r in res)
+        detail = " ".join(f"{n} {r[0]:.3g}" for n, r in zip(
+            ("color", "depth", "final_t", "lf", "grad"), res))
+    else:
+        ok = e_c < 2e-2 and cos > 0.999
+        detail = f"color {e_c:.3g}"
+    print(f"[backends {mm_dtype}] cuda vs torch compositor max|err| {detail}; "
+          f"grad cosine {cos:.7f} [{card}]")
+    if not ok:
+        fails.append(f"backends {mm_dtype}: outside tolerance")
+
+
+# --- measurement -----------------------------------------------------------
+
+def event_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+@torch.no_grad()
+def work_counts(start, count, geo, tile_w, tile_h, ntx, chunk, kfin):
+    """(pair-pixels evaluated, kept, contributing, pair rows read) over the
+    chunks each tile processes before its termination watermark kfin: what
+    these inputs need, for the bound."""
+    from legslam_torch.ops.cuda.composite import (LOG_TERM, chunk_alpha,
+                                                  exclusive_cumsum,
+                                                  tile_chunk_ranges,
+                                                  tile_pixels)
+    dev = geo.device
+    n_eval = n_keep = n_contrib = rows = 0
+    koff = torch.arange(chunk, device=dev)
+    for t0 in range(0, start.shape[0], 16):
+        tid = torch.arange(t0, min(t0 + 16, start.shape[0]), device=dev)
+        s, e, base0, _ = tile_chunk_ranges(start[tid], count[tid], chunk)
+        px, py = tile_pixels(tid, tile_w, tile_h, ntx)
+        kf = kfin[tid].long()
+        log_all = torch.zeros(len(tid), tile_w * tile_h, device=dev)
+        for k in range(int(kf.max())):
+            pos = base0[:, None] + k * chunk + koff
+            in_range = (pos >= s[:, None]) & (pos < e[:, None]) & \
+                (k < kf)[:, None]
+            alpha = chunk_alpha(geo, pos, in_range, px, py)["alpha"]
+            log1m = torch.log1p(-alpha)
+            log_exc = log_all[..., None] + exclusive_cumsum(log1m)
+            contrib = (log_exc + log1m >= LOG_TERM) & (alpha > 0)
+            npair = int(in_range.sum())
+            rows += npair
+            n_eval += npair * tile_w * tile_h
+            n_keep += int((alpha > 0).sum())
+            n_contrib += int(contrib.sum())
+            log_all = log_all + log1m.sum(-1)
+    return n_eval, n_keep, n_contrib, rows
+
+
+def bounds(fwd_args, kfin):
+    """Least times (ms) of the forward and backward kernels on these inputs:
+    the larger of bytes / HBM rate and f32 ops / CUDA-core peak."""
+    start, count, geo, feats, tile_w, tile_h, ntx, chunk = fwd_args
+    c = feats.shape[1]
+    ntiles, npix = start.shape[0], tile_w * tile_h
+    n_eval, n_keep, n_contrib, rows = work_counts(
+        start, count, geo, tile_w, tile_h, ntx, chunk, kfin)
+    row_bytes = 32 + c * feats.element_size()
+    pix_bytes = ntiles * npix * 4
+    fwd_bytes = 8 * ntiles + rows * row_bytes + pix_bytes * (c + 1) + \
+        4 * ntiles
+    bwd_bytes = 8 * ntiles + rows * row_bytes + pix_bytes * (2 * c + 2) + \
+        geo.shape[0] * (32 + 4 * c)
+    base_ops = n_eval * OPS_EVAL + n_keep * OPS_KEEP
+    fwd_ops = base_ops + n_contrib * ops_fwd_contrib(c)
+    bwd_ops = base_ops + n_contrib * ops_bwd_contrib(c)
+    out = {}
+    for name, b, o in (("fwd", fwd_bytes, fwd_ops), ("bwd", bwd_bytes,
+                                                     bwd_ops)):
+        tb, to = b / PEAK_BYTES * 1e3, o / PEAK_F32_OPS * 1e3
+        out[name] = dict(bound_ms=max(tb, to),
+                         bound_by="bytes" if tb >= to else "operations",
+                         bytes=b, ops=o)
+    out["counts"] = dict(pair_pixels=n_eval, kept=n_keep,
+                         contributing=n_contrib, pair_rows=rows)
+    return out
+
+
+def build_phase():
+    from legslam_torch import _build
+    names = ("composite_fwd", "composite_bwd")
+    t0 = time.perf_counter()
+    secs = _build.build(names)
+    print(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: "
+          f"{time.perf_counter() - t0:.1f} s wall "
+          f"({', '.join(f'{n} {s:.1f} s' for n, s in secs.items()) or 'cached'})")
+    for n in names:
+        log = _build.log_path(n).read_text().splitlines()
+        # ptxas reports per instantiation; show the main path's (72 ch)
+        for i, line in enumerate(log):
+            if "Compiling entry function" in line and "ILi72E" in line:
+                tail = " ".join(x.split("info    :")[-1].strip()
+                                for x in log[i + 1:i + 4])
+                dtype = "bf16" if "bfloat16" in line else "f32"
+                print(f"[build] {n} <72, {dtype}>: {tail}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        import legslam_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: legslam_torch not found ({e})", file=sys.stderr)
+        return 2
+    from legslam_torch.ops.cuda import composite as cf
+    from legslam_torch.ops.cuda import composite_bwd as cb
+
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"[card] {card}; torch {torch.__version__} CUDA "
+          f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
+    fails: list[str] = []
+    build_phase()
+
+    # phase 3: smoke shape
+    st, view, gt = make_scene(dev, 320, 192, 20_000, 1 << 15, seed=1)
+    for mm_dtype in ("float32", "bfloat16"):
+        check_backends(st, view, gt, mm_dtype, card, fails)
+        drv = StepLoop(st, view, gt, make_cfg(1 << 16, mm_dtype))
+        binning = drv._binning()
+        fa, ba = capture_kernel_inputs(lambda: drv.step(binning))
+        check_kernels(fa, ba, f"320x192 {mm_dtype}", card, fails)
+        del drv
+    del st, view, gt
+    torch.cuda.empty_cache()
+
+    # phase 4: the main path
+    st, view, gt = make_scene(dev, 1200, 680, 200_000, 1 << 18, seed=0)
+    drv = StepLoop(st, view, gt, make_cfg(1 << 20, "bfloat16"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cf.composite_forward.launches = 0
+    cb.composite_backward.launches = 0
+    group_ms, losses = [], []
+    with ClockSampler() as clk_main:
+        for g in range(3):
+            t0 = time.perf_counter()
+            aux = drv.group()
+            loss = float(aux.loss)      # synchronises
+            group_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+    launches = dict(fwd=cf.composite_forward.launches,
+                    bwd=cb.composite_backward.launches)
+    steps = 3 * drv.refresh
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = statistics.median(group_ms[1:]) / drv.refresh
+    print(f"[main] 1200x680, 200k gaussians / capacity 262144, bf16, "
+          f"refresh 8 + trim + trim-fresh; loss per group "
+          f"{[round(x, 6) for x in losses]}; num_rendered "
+          f"{int(aux.num_rendered)} overflow_pairs {int(aux.overflow_pairs)}"
+          f"; launches over {steps} steps fwd {launches['fwd']} bwd "
+          f"{launches['bwd']}; group ms {[round(x, 2) for x in group_ms]}; "
+          f"median ms/step of the timed groups {step_ms:.3f}; "
+          f"max_memory_allocated {peak_gib:.2f} GiB [{card}]")
+    print(f"[clocks] main path: {clk_main.summary()} [{card}]")
+    if not all(math.isfinite(x) for x in losses):
+        fails.append("main: loss not finite")
+    for k in ("fwd", "bwd"):
+        if launches[k] != steps:
+            fails.append(f"main: {k} kernel launched {launches[k]} times "
+                         f"in {steps} steps")
+
+    # the kernels at the main path's shapes: a reuse step's inputs
+    fa, ba = capture_kernel_inputs(lambda: drv.step(drv.binning))
+    errs = check_kernels(fa, ba, "1200x680 bf16", card, fails)
+    _, _, kfin = cf.composite_forward(*fa)
+    b = bounds(fa, kfin)
+    with ClockSampler() as clk_kernels:
+        times = dict(
+            fwd=event_ms(lambda: cf.composite_forward(*fa), 20),
+            bwd=event_ms(lambda: cb.composite_backward(*ba), 10))
+    times.update(
+        fwd_plain=event_ms(lambda: cf.composite_forward_plain(*fa), 2),
+        bwd_plain=event_ms(lambda: cb.composite_backward_plain(*ba), 2))
+    print(f"[main] kernel times at 1200x680 ({int(fa[0].shape[0])} tiles, "
+          f"{int(fa[2].shape[0])} pair rows, {b['counts']}): "
+          f"fwd {times['fwd']:.3f} ms (plain {times['fwd_plain']:.3f}, "
+          f"bound {b['fwd']['bound_ms']:.3f} by {b['fwd']['bound_by']}); "
+          f"bwd {times['bwd']:.3f} ms (plain {times['bwd_plain']:.3f}, "
+          f"bound {b['bwd']['bound_ms']:.3f} by {b['bwd']['bound_by']}) "
+          f"[{card}]")
+    print(f"[clocks] kernel timing: {clk_kernels.summary()} [{card}]")
+
+    rows = []
+    for k, name, src, tpu in (
+            ("fwd", "composite_fwd", "legslam_torch/csrc/composite_fwd.cu",
+             "legslam_tpu/ops/pallas/composite.py:153"),
+            ("bwd", "composite_bwd", "legslam_torch/csrc/composite_bwd.cu",
+             "legslam_tpu/ops/pallas/composite_bwd.py:96")):
+        rows.append(dict(name=name, route="cuda", source=src, replaces=tpu,
+                         launches=launches[k], max_abs_err=errs[k],
+                         ms=times[k], plain_ms=times[f"{k}_plain"],
+                         bound_ms=b[k]["bound_ms"],
+                         bound_by=b[k]["bound_by"], library_ms=None))
+    if fails:
+        print("chip_smoke FAILED: " + "; ".join(fails), file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,131 @@
+"""The compositing kernels' wrappers, without JAX, so this file also runs
+on a machine with a card (the JAX conftest skipped):
+
+    python -m pytest --noconftest tests/test_torch_kernels.py -q
+
+* anywhere: the wrappers run their plain versions for CPU tensors and
+  count no launch; the build raises without nvcc;
+* on a card (marker `cuda`, skipped without one): each kernel against its
+  plain version on the pair arrays of a small seeded scene, in float32
+  and bfloat16 features. Tolerances: acc and t_final atol 2e-4 / rtol
+  1e-3 (the JAX suite's forward tolerance, LF channels' atol for all),
+  kfin equal; dgeo and dfeats atol 2e-4 / rtol 2e-2 (its gradient
+  tolerance), with cotangents sized like a mean loss's.
+"""
+import numpy as np
+import pytest
+import torch
+
+from legslam_torch.config import RasterizeConfig
+from legslam_torch.models import gaussians as G
+from legslam_torch.ops.cuda import composite as CF
+from legslam_torch.ops.cuda import composite_bwd as CB
+from legslam_torch.ops.projection import preprocess
+from legslam_torch.ops.rasterize import compute_binning
+from legslam_torch.utils.camera import CameraView
+from legslam_torch.utils.sh import sh_to_color
+
+torch.set_num_threads(1)
+
+W, H, CHUNK = 160, 96, 64
+
+
+def _pair_args(device, mm_dtype, seed=0, with_lf=True):
+    """(forward args, backward args) of a seeded 600-gaussian scene, with
+    the 64 language-feature channels (72 padded) or without (8 padded)."""
+    rng = np.random.default_rng(seed)
+    n, cap = 600, 1024
+    pts = (rng.normal(size=(n, 3)) * 0.8).astype(np.float32)
+    pts[:, 2] = np.abs(pts[:, 2]) + 2.5
+    st = G.create_from_pcd(pts, rng.uniform(size=(n, 3)), cap,
+                           lang_feat=rng.normal(size=(n, 64)), device=device)
+    op = rng.uniform(0.5, 0.99, size=cap).astype(np.float32)
+    st.params.opacity.copy_(torch.as_tensor(np.log(op / (1 - op))[:, None]))
+    view = CameraView.create(np.eye(3), np.zeros(3), W, H, fx=120.0,
+                             fy=120.0, device=device)
+    cfg = RasterizeConfig(chunk=CHUNK, max_pairs=1 << 14, backend="cuda",
+                          mm_dtype=mm_dtype)
+    opacity = st.opacities()
+    binning, _ = compute_binning(
+        st.params.xyz, st.scales(), st.params.rotation, st.valid,
+        view.world_view, view.full_proj, view.tan_fovx, view.tan_fovy, W, H,
+        cfg, opacity=opacity)
+    pre = preprocess(st.params.xyz, st.scales(), st.rotations(), st.valid,
+                     view.world_view, view.full_proj, W, H, view.focal_x,
+                     view.focal_y, view.tan_fovx, view.tan_fovy)
+    lf = [st.params.lang_feat] if with_lf else []
+    feats = torch.cat([sh_to_color(0, st.sh(), st.params.xyz,
+                                   view.cam_center), *lf,
+                       pre.depth[:, None]], dim=1)
+    start, count, geo, pf = CF.prepare_pairs(
+        binning, pre.mean2d, pre.conic, opacity, feats, cfg.max_pairs,
+        mm_dtype)
+    fa = (start, count, geo, pf, 128, 16, -(-W // 128), CHUNK)
+    ntiles, npix = start.shape[0], 128 * 16
+    g = torch.Generator(device=device).manual_seed(seed)
+    gout = torch.randn(ntiles, npix, pf.shape[1], generator=g,
+                       device=device) / W
+    gt = torch.randn(ntiles, npix, generator=g, device=device) / W
+    return fa, gout, gt
+
+
+def _assert_close(a, b, atol, rtol, name):
+    np.testing.assert_allclose(a.detach().cpu().numpy(),
+                               b.detach().cpu().numpy(), atol=atol,
+                               rtol=rtol, err_msg=name)
+
+
+@pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16"])
+def test_wrappers_run_plain_versions_on_cpu(mm_dtype):
+    fa, gout, gt = _pair_args("cpu", mm_dtype)
+    launches = (CF.composite_forward.launches,
+                CB.composite_backward.launches)
+    acc, tfin, kfin = CF.composite_forward(*fa)
+    acc_p, tfin_p, kfin_p = CF.composite_forward_plain(*fa)
+    assert torch.equal(acc, acc_p) and torch.equal(tfin, tfin_p)
+    assert torch.equal(kfin, kfin_p) and int(kfin.max()) > 0
+    ba = fa[:4] + (gout, gt, tfin, acc) + fa[4:]
+    dgeo, dfe = CB.composite_backward(*ba)
+    dgeo_p, dfe_p = CB.composite_backward_plain(*ba)
+    assert torch.equal(dgeo, dgeo_p) and torch.equal(dfe, dfe_p)
+    assert dgeo.abs().max() > 0
+    assert (CF.composite_forward.launches,
+            CB.composite_backward.launches) == launches
+
+
+def test_kernel_build_needs_nvcc(monkeypatch):
+    """The kernels build only with the CUDA toolkit; without nvcc the
+    build raises instead of falling back (legslam_torch/_build.py)."""
+    import os
+    import shutil
+
+    from legslam_torch import _build
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setattr(os.path, "exists", lambda path: False)
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR / "absent")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(["composite_fwd"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_lf", [True, False])
+@pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16"])
+def test_kernels_match_plain_on_card(mm_dtype, with_lf):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    fa, gout, gt = _pair_args("cuda", mm_dtype, with_lf=with_lf)
+    assert fa[3].shape[1] == (72 if with_lf else 8)
+    launches = CF.composite_forward.launches
+    acc, tfin, kfin = CF.composite_forward(*fa)
+    torch.cuda.synchronize()
+    assert CF.composite_forward.launches == launches + 1
+    acc_p, tfin_p, kfin_p = CF.composite_forward_plain(*fa)
+    _assert_close(acc, acc_p, 2e-4, 1e-3, "acc")
+    _assert_close(tfin, tfin_p, 2e-4, 1e-3, "t_final")
+    assert torch.equal(kfin, kfin_p)
+    ba = fa[:4] + (gout, gt, tfin_p, acc_p) + fa[4:]
+    dgeo, dfe = CB.composite_backward(*ba)
+    torch.cuda.synchronize()
+    dgeo_p, dfe_p = CB.composite_backward_plain(*ba)
+    _assert_close(dgeo, dgeo_p, 2e-4, 2e-2, "dgeo")
+    _assert_close(dfe, dfe_p, 2e-4, 2e-2, "dfeats")
