@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Build legslam_torch's CUDA kernels and drive the port's mapping step on
-one NVIDIA H100.
+"""Build legslam_torch's CUDA kernels and drive the port's mapping step and
+its online mapper on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -21,10 +21,33 @@ Phases (each prints one or more lines; any failure exits non-zero):
      over those 24 steps, then each kernel against its plain version at
      the main path's shapes, with CUDA-event times and the bound; the SM
      clock, power draw and temperature are sampled beside the step and
-     the kernel timings;
-  5. a {"kernels": [...]} line, then the card line, then as the last line
+     the kernel timings; then the sort kernels at the main path's shapes:
+     the scene's [2^23] pair-key buffer through sort_keys and argsort_f32
+     of its 2^18 depths and mask (both as bin_gaussians hands them over
+     with cuda_sort), and 2^23 random keys with many duplicates, each
+     against its plain version bit for bit, with CUDA-event times of the
+     kernel, the plain version and torch.sort, and the bound;
+  5. the online mapper at full width: a 40-frame 1200x680 sequence of
+     the synthetic room of 200k gaussians rendered on the card, a
+     trajectory frontend (every 4th frame a keyframe) with a seeded
+     37x37x64 LF grid a frame standing in for the encoder, GaussianMapper
+     at capacity 2^18 with the "cuda" backend, bf16 pair features and
+     cuda_sort, binning refreshed every 8 uses with both trims, densify
+     every 50 iterations, 7 iterations a frame once the map starts, then
+     the tail, save and the keyframe metrics; one [mapper] line with the
+     iterations, keyframes, gaussians, capacity rungs, escalations, ms per
+     iteration, fresh binnings and each kernel's launches, and PSNR
+     against the initial map's and a gray image's; the final state's
+     binning with cuda_sort on and off, and before and after growing the
+     store a rung, equal bit for bit; then the same run with float32
+     pair features on the kernels and on the "torch" compositor with
+     torch.sort, whose PSNRs must match (see mapper_phase);
+  6. a {"kernels": [...]} line, then the card line, then as the last line
      {"ok": true, "device": {...}}.
 
+Each kernel's `launches` is its count over the path that runs it: the
+compositing kernels' over phase 4's 24 steps, the sort kernels' over
+phase 5's training loop (phase 4 keeps cuda_sort off, its default).
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result. Imports nothing of JAX.
 """
@@ -36,6 +59,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -171,12 +195,12 @@ def make_scene(dev, width, height, n_points, capacity, seed=0):
     return st, view, gt
 
 
-def make_cfg(max_pairs, mm_dtype, backend="cuda"):
+def make_cfg(max_pairs, mm_dtype, backend="cuda", cuda_sort=False):
     from legslam_torch.config import RasterizeConfig
     return RasterizeConfig(tile_h=16, tile_w=128, max_span_x=4, max_span_y=8,
                            chunk=256, tile_batch=16, backend=backend,
                            max_pairs=max_pairs, mm_dtype=mm_dtype,
-                           power_mode="sep3")
+                           power_mode="sep3", cuda_sort=cuda_sort)
 
 
 class StepLoop:
@@ -462,9 +486,381 @@ def bounds(fwd_args, kfin):
     return out
 
 
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+# --- the sort kernels --------------------------------------------------------
+
+SORT_TILE_LOG2 = 12   # csrc/sort.cu TILE = 4096
+
+
+def sort_launches(n: int) -> int:
+    """CUDA kernel launches of one sort of n keys in csrc/sort.cu: one
+    shared-memory pass up to merges of the tile, then for each larger merge
+    size 2^k, k - 12 global stages and one shared-memory pass for its tail,
+    1 + sum_{k=13..log2 n} (k - 11)."""
+    d = max(n.bit_length() - 1 - SORT_TILE_LOG2, 0)
+    return 1 + d * (d + 1) // 2 + d
+
+
+def sort_bound(n: int, with_values: bool) -> dict:
+    """Least time (ms) of a sort of n int32 keys (and values): each input
+    read once and each output written once over the HBM rate, against
+    n log2 n comparisons (what any comparison sort needs) at the CUDA-core
+    peak (the table has no integer rate; Hopper's int32 rate is half the
+    float32 one, which would not change which bound binds)."""
+    nbytes = (16 if with_values else 8) * n
+    ops = n * max(int(math.log2(n)), 1)
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_OPS * 1e3
+    return dict(bound_ms=max(tb, to),
+                bound_by="bytes" if tb >= to else "operations",
+                bytes=nbytes, ops=ops)
+
+
+def max_int_err(a, b) -> float:
+    return float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
+
+
+def check_sorts(st, view, card, fails):
+    """The sort kernels at the main path's shapes against their plain
+    versions, bit for bit (a sort has one right answer), and their times
+    beside torch.sort's. Returns (max errors, times, bounds)."""
+    from legslam_torch.ops.binning import pair_keys
+    from legslam_torch.ops.cuda import sort as cs
+    from legslam_torch.ops.projection import preprocess
+    from legslam_torch.utils.transforms import normalize_quat
+    dev = st.valid.device
+    # the inputs bin_gaussians hands the kernels with cuda_sort: the
+    # preprocessed depths and mask, and the padded pair-key buffer
+    focal_x = view.width / (2.0 * view.tan_fovx)
+    focal_y = view.height / (2.0 * view.tan_fovy)
+    pre = preprocess(st.params.xyz, st.scales(),
+                     normalize_quat(st.params.rotation), st.valid,
+                     view.world_view, view.full_proj, view.width, view.height,
+                     focal_x, focal_y, view.tan_fovx, view.tan_fovy, 1.0)
+    _, key, _, _ = pair_keys(pre, view.width, view.height,
+                             make_cfg(1 << 20, "bfloat16"),
+                             opacity=st.opacities())
+    keys = cs.pad_keys(key)
+    depth, mask = pre.depth, pre.mask
+    bits = cs.argsort_bits(depth, mask)
+    iota = torch.arange(bits.shape[0], dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    n = keys.shape[0]
+    rkeys = torch.randint(0, 1 << 16, (n,), generator=g, device=dev,
+                          dtype=torch.int32)
+    rvals = torch.randint(0, 16, (n,), generator=g, device=dev,
+                          dtype=torch.int32)
+
+    out = cs.sort_keys(keys)
+    order = cs.argsort_f32(depth, mask)
+    r_out = cs.sort_keys(rkeys)
+    rk, rv = cs.sort_kv(rkeys, rvals)
+    sync(dev)
+    plain = cs.sort_keys_plain(keys)
+    plain_order = cs.sort_kv_plain(bits, iota)[1]
+    r_plain = cs.sort_keys_plain(rkeys)
+    rk_p, rv_p = cs.sort_kv_plain(rkeys, rvals)
+    stable = torch.argsort(torch.where(mask, depth, float("inf")),
+                           stable=True)
+    P = depth.shape[0]
+    ok = dict(
+        keys=torch.equal(out, plain), order=torch.equal(order, plain_order),
+        stable=torch.equal(order[:P].long(), stable),
+        random_keys=torch.equal(r_out, r_plain),
+        random_kv=torch.equal(rk, rk_p) and torch.equal(rv, rv_p))
+    errs = dict(sort_keys=max(max_int_err(out, plain),
+                              max_int_err(r_out, r_plain)),
+                sort_kv=max(max_int_err(order, plain_order),
+                            max_int_err(rk, rk_p), max_int_err(rv, rv_p)))
+    for what, good in ok.items():
+        if not good:
+            fails.append(f"sort kernels: {what} differs from the plain "
+                         "version")
+    with ClockSampler() as clk:
+        times = dict(
+            sort_keys=event_ms(lambda: cs.sort_keys(keys), 20),
+            sort_keys_lib=event_ms(lambda: torch.sort(keys), 20),
+            sort_kv=event_ms(lambda: cs.sort_kv(bits, iota), 50),
+            sort_kv_lib=event_ms(lambda: torch.sort(bits, stable=True), 50))
+    times.update(
+        sort_keys_plain=event_ms(lambda: cs.sort_keys_plain(keys), 20),
+        sort_kv_plain=event_ms(lambda: cs.sort_kv_plain(bits, iota), 50))
+    bnd = dict(sort_keys=sort_bound(n, False),
+               sort_kv=sort_bound(bits.shape[0], True))
+    sentinel_share = float((keys == keys.max()).float().mean())
+    print(f"[sort] sort_keys of the {n} pair keys of the main path's binning "
+          f"({sentinel_share:.1%} sentinels): bit-exact {ok['keys']}, "
+          f"{sort_launches(n)} kernel launches a call; kernel "
+          f"{times['sort_keys']:.3f} ms, plain "
+          f"{times['sort_keys_plain']:.3f} ms, torch.sort "
+          f"{times['sort_keys_lib']:.3f} ms, bound "
+          f"{bnd['sort_keys']['bound_ms']:.4f} ms by "
+          f"{bnd['sort_keys']['bound_by']} [{card}]")
+    print(f"[sort] argsort_f32 of {P} depths ({int(mask.sum())} valid) "
+          f"through sort_kv at {bits.shape[0]}: bit-exact {ok['order']}, "
+          f"the stable order {ok['stable']}, "
+          f"{sort_launches(bits.shape[0])} kernel launches "
+          f"a call; kernel {times['sort_kv']:.3f} ms, plain "
+          f"{times['sort_kv_plain']:.3f} ms, torch.sort(stable=True) "
+          f"{times['sort_kv_lib']:.3f} ms, bound "
+          f"{bnd['sort_kv']['bound_ms']:.5f} ms by "
+          f"{bnd['sort_kv']['bound_by']} [{card}]")
+    print(f"[sort] {n} random keys from 65536 values, random values from "
+          f"16: sort_keys bit-exact {ok['random_keys']}, sort_kv bit-exact "
+          f"{ok['random_kv']} [{card}]")
+    print(f"[clocks] sort timing: {clk.summary()} [{card}]")
+    return errs, times, bnd
+
+
+# --- phase 5: the online mapper -----------------------------------------
+
+MAPPER_ROOM = dict(n_frames=40, width=1200, height=680, n_gaussians=200_000,
+                   seed=0)
+
+
+def drive_mapper(dev, ds, frames, cfg, out_dir, max_per_tile=2048):
+    """Drive GaussianMapper over `frames` as the app loop does (track,
+    drain, initialize_map, train_iteration; then the tail), with a seeded
+    unit-norm 37x37x64 LF grid a frame standing in for the encoder.
+    Returns the mapper, a copy of its store right after initialize_map,
+    and the ms per iteration, synced losses and capacity rungs."""
+    from legslam_torch.config import MapperParams, OptimizationParams
+    from legslam_torch.mapper.mapper import GaussianMapper
+    from legslam_torch.models import gaussians as G
+    from legslam_torch.slam.trajectory import TrajectoryFrontend
+    rng = np.random.default_rng(0)
+
+    def lf_grid():
+        lf = rng.normal(size=(37, 37, 64)).astype(np.float32)
+        return lf / np.linalg.norm(lf, axis=-1, keepdims=True)
+    frontend = TrajectoryFrontend(ds.intrinsics, kf_stride=4)
+    # densify every 50 iterations from 40: four times in the run
+    opt = OptimizationParams(densify_from_iter=40, densification_interval=50)
+    mapper = GaussianMapper(frontend.queue, ds.intrinsics, opt=opt,
+                            mp=MapperParams(min_num_initial_map_kfs=4),
+                            cfg=cfg, capacity=1 << 18, result_dir=out_dir,
+                            max_per_tile=max_per_tile,
+                            binning_refresh_interval=8, device=dev)
+    iter_ms, losses, rungs, init = [], [], [], None
+
+    def step():
+        ta = time.perf_counter()
+        loss = mapper.train_iteration()
+        sync(dev)
+        iter_ms.append((time.perf_counter() - ta) * 1e3)
+        if loss is not None:
+            losses.append(loss)
+        if mapper.state.capacity not in rungs:
+            rungs.append(mapper.state.capacity)
+
+    for f in frames:
+        frontend.track(f, lf_image=lf_grid())
+        mapper.drain_operations()
+        if mapper.state is None and mapper.has_met_initial_conditions():
+            mapper.initialize_map()
+            init = G.copy_state(mapper.state)
+        if mapper.state is not None:
+            for _ in range(7):
+                step()
+    frontend.finish()
+    mapper.drain_operations(limit=10_000)
+    for _ in range(int(0.8 * opt.densification_interval)):
+        step()
+    return mapper, init, iter_ms, losses, rungs
+
+
+@torch.no_grad()
+def keyframe_psnr(mapper, state=None) -> float:
+    """Mean PSNR over the mapper's keyframes at full resolution of `state`
+    (the mapper's own store by default), as record_keyframe_metrics
+    computes it."""
+    from legslam_torch.ops import losses as L
+    final = mapper.state
+    mapper.state = final if state is None else state
+    try:
+        return statistics.mean(
+            float(L.psnr_gaussian_splatting(mapper.render_from_pose(
+                kf.R, kf.t, kf.views[-1].width, kf.views[-1].height).color,
+                kf.gt_color[-1]))
+            for kf in mapper.keyframes.values())
+    finally:
+        mapper.state = final
+
+
+def same_binning(a, b, capacity=None) -> bool:
+    """Whether two (Binning, overflow) are equal bit for bit. With
+    `capacity`, b is the binning of the same store grown past it: its
+    order continues past that length with the new (invalid) slots, and
+    its empty pairs name the grown capacity."""
+    if capacity is not None:
+        g = b[0]
+        b = (g._replace(order=g.order[:capacity], pair_gid=torch.where(
+            g.pair_gid >= capacity, capacity, g.pair_gid)), b[1])
+    return all(torch.equal(x, y) for x, y in zip(a[0], b[0])) and \
+        torch.equal(a[1], b[1])
+
+
+def mapper_phase(dev, card, fails, out_dir):
+    """Phase 5: GaussianMapper over a 40-frame 1200x680 sequence of the
+    synthetic room of 200k gaussians, with the "cuda" backend, bf16 pair
+    features and cuda_sort. Returns the kernels' launch counts over that
+    run and the phase's seconds.
+
+    The room's 200k blobs of opacity 0.9 overlap into a fog whose colours
+    average to gray: a flat 0.5 image scores ~25 dB PSNR on it, and a short
+    online run leaves part of each keyframe uncovered (rendered black), so
+    "3 dB above gray" is not a bar such a run can clear. The map has to
+    earn two others instead: it beats the map the mapper started from
+    (the store right after initialize_map, on the same keyframes) by 3 dB;
+    and a witness independent of the four kernels: the same run on the
+    "torch" reference compositor with torch.sort reaches the keyframe PSNR
+    of the same run on the kernels within 0.1 dB, both with float32 pair
+    features (the reference has no bf16 storage; bf16's own effect, ~0.5
+    dB here, is printed). Gray's PSNR and the uncovered share are printed
+    beside them.
+
+    The store stays at the ladder's first rung (2^15) in this run, so the
+    final store is also grown to the next rung (grow_capacity) and must
+    bin and render bit for bit as before, through the sort kernels at the
+    grown sizes."""
+    import dataclasses
+
+    from legslam_torch.config import RasterizeConfig
+    from legslam_torch.data.synthetic import SyntheticDataset
+    from legslam_torch.models import gaussians as G
+    from legslam_torch.ops import losses as L
+    from legslam_torch.ops.cuda import composite as cf
+    from legslam_torch.ops.cuda import composite_bwd as cb
+    from legslam_torch.ops.cuda import sort as cs
+    secs = {}
+    t0 = time.perf_counter()
+    ds = SyntheticDataset(**MAPPER_ROOM, device=dev)
+    frames = [ds.read(i) for i in range(len(ds))]
+    sync(dev)
+    secs["render"] = time.perf_counter() - t0
+    kernels = dict(composite_fwd=cf.composite_forward,
+                   composite_bwd=cb.composite_backward,
+                   sort_keys=cs.sort_keys, sort_kv=cs.sort_kv)
+
+    t0 = time.perf_counter()
+    cfg = RasterizeConfig(backend="cuda", mm_dtype="bfloat16", cuda_sort=True)
+    with ClockSampler() as clk:
+        for fn in kernels.values():
+            fn.launches = 0
+        mapper, init, iter_ms, losses, rungs = drive_mapper(
+            dev, ds, frames, cfg, out_dir)
+        launches = {k: fn.launches for k, fn in kernels.items()}
+    secs["train"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    mapper.save("experiment")
+    stats = mapper.record_keyframe_metrics("experiment")
+    psnr_init = keyframe_psnr(mapper, init)
+    gray = statistics.mean(
+        float(L.psnr_gaussian_splatting(torch.full_like(kf.gt_color[-1], 0.5),
+                                        kf.gt_color[-1]))
+        for kf in mapper.keyframes.values())
+    # share of keyframe pixels the map leaves uncovered (T > 0.5)
+    uncovered = statistics.mean(
+        float((mapper.render_from_pose(kf.R, kf.t, kf.views[-1].width,
+                                       kf.views[-1].height).final_t > 0.5)
+              .float().mean()) for kf in mapper.keyframes.values())
+    # the final state's binning from the newest keyframe at full
+    # resolution, with the sort kernels and with torch.sort
+    view = mapper.keyframes[max(mapper.keyframes)].views[-1]
+    b_on, b_off = (mapper.binning_for(view, dataclasses.replace(
+        mapper.cfg, cuda_sort=flag)) for flag in (True, False))
+    same = same_binning(b_on, b_off)
+    # the final store grown to the ladder's next rung bins (through the
+    # sort kernels) and renders as before
+    st = mapper.state
+    cap0 = st.capacity
+    cap1 = min(4 * cap0, mapper.capacity)
+    mapper.state = G.grow_capacity(st, cap1)
+    b_grown = mapper.binning_for(view, mapper.cfg)
+    kf = mapper.keyframes[max(mapper.keyframes)]
+    img_grown = mapper.render_from_pose(kf.R, kf.t, view.width, view.height)
+    mapper.state = st
+    img = mapper.render_from_pose(kf.R, kf.t, view.width, view.height)
+    n_valid = int(st.num_valid())
+    grown_same = same_binning(b_on, b_grown, cap0) and \
+        torch.equal(img.color, img_grown.color) and \
+        torch.equal(img.final_t, img_grown.final_t)
+    secs["save_metrics"] = time.perf_counter() - t0
+
+    # the witness: the same run on the kernels with float32 pair features,
+    # and on the "torch" reference compositor with torch.sort (its
+    # max_per_tile as high as the ladder goes: the kernels clip no tile)
+    t0 = time.perf_counter()
+    f32 = drive_mapper(dev, ds, frames, dataclasses.replace(
+        cfg, mm_dtype="float32"), out_dir + "_f32")[0]
+    ref, _, ref_ms, ref_losses, _ = drive_mapper(
+        dev, ds, frames, RasterizeConfig(backend="torch"),
+        out_dir + "_torch", max_per_tile=1 << 16)
+    psnr_f32, psnr_ref = keyframe_psnr(f32), keyframe_psnr(ref)
+    secs["witness"] = time.perf_counter() - t0
+
+    finite = all(math.isfinite(x) for x in losses) and \
+        all(bool(torch.isfinite(v).all()) for v in st.params.as_dict().values())
+    p = sorted(iter_ms)
+    print(f"[mapper] {ds.intrinsics['width']}x{ds.intrinsics['height']}, "
+          f"{len(frames)} frames of {MAPPER_ROOM['n_gaussians']} gaussians, "
+          f"{mapper.iteration} iterations, {len(mapper.keyframes)} keyframes,"
+          f" num_valid {n_valid}, capacity rungs {rungs}, escalations "
+          f"{mapper.overflow_escalations}; ms/iteration median "
+          f"{statistics.median(p):.2f} p90 {p[int(0.9 * (len(p) - 1))]:.2f}"
+          f"; fresh binnings {mapper.fresh_binnings}, launches {launches}; "
+          f"synced losses {[round(x, 4) for x in losses[-3:]]}; keyframe "
+          f"PSNR {stats['psnr']:.2f} dB (initial map {psnr_init:.2f} dB, "
+          f"gray {gray:.2f} dB), DSSIM {stats['dssim']:.4f}, uncovered "
+          f"pixels {uncovered:.2%}, render {stats['render_ms']:.1f} ms; "
+          f"binning with cuda_sort on == off: {same}; grown to {cap1}: "
+          f"binning and render unchanged {grown_same}; seconds {secs} "
+          f"[{card}]")
+    print(f"[mapper] witness, the same run with float32 pair features: "
+          f"on the torch compositor with torch.sort {ref.iteration} "
+          f"iterations, num_valid {int(ref.state.num_valid())}, escalations "
+          f"{ref.overflow_escalations}, synced losses "
+          f"{[round(x, 4) for x in ref_losses[-3:]]}, keyframe PSNR "
+          f"{psnr_ref:.3f} dB, ms/iteration median "
+          f"{statistics.median(ref_ms):.2f}; on the kernels num_valid "
+          f"{int(f32.state.num_valid())}, keyframe PSNR {psnr_f32:.3f} dB "
+          f"(with bf16 pair features {stats['psnr']:.3f}) [{card}]")
+    print(f"[clocks] mapper loop: {clk.summary()} [{card}]")
+    if not finite:
+        fails.append("mapper: loss or parameters not finite")
+    if mapper.iteration < 200:
+        fails.append(f"mapper: {mapper.iteration} iterations < 200")
+    if not stats["psnr"] >= psnr_init + 3.0:
+        fails.append(f"mapper: PSNR {stats['psnr']:.2f} not 3 dB above the "
+                     f"initial map's {psnr_init:.2f}")
+    if not abs(psnr_f32 - psnr_ref) <= 0.1:
+        fails.append(f"mapper: PSNR {psnr_f32:.3f} on the kernels not within"
+                     f" 0.1 dB of the torch compositor's {psnr_ref:.3f}")
+    for k, v in launches.items():
+        if v == 0:
+            fails.append(f"mapper: {k} launched no time")
+    for k in ("sort_keys", "sort_kv"):
+        if launches[k] != mapper.fresh_binnings:
+            fails.append(f"mapper: {k} launched {launches[k]} times for "
+                         f"{mapper.fresh_binnings} fresh binnings")
+    for k in ("composite_fwd", "composite_bwd"):
+        if launches[k] != mapper.iteration:
+            fails.append(f"mapper: {k} launched {launches[k]} times in "
+                         f"{mapper.iteration} iterations")
+    if not same:
+        fails.append("mapper: the final binning differs with cuda_sort")
+    if not grown_same:
+        fails.append("mapper: the grown store bins or renders differently")
+    return launches, secs
+
+
 def build_phase():
     from legslam_torch import _build
-    names = ("composite_fwd", "composite_bwd")
+    names = ("composite_fwd", "composite_bwd", "sort")
     t0 = time.perf_counter()
     secs = _build.build(names)
     print(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: "
@@ -473,12 +869,20 @@ def build_phase():
     for n in names:
         log = _build.log_path(n).read_text().splitlines()
         # ptxas reports per instantiation; show the main path's (72 ch)
+        # and the sort's four (keys / kv x local / global)
         for i, line in enumerate(log):
-            if "Compiling entry function" in line and "ILi72E" in line:
-                tail = " ".join(x.split("info    :")[-1].strip()
-                                for x in log[i + 1:i + 4])
+            if "Compiling entry function" not in line:
+                continue
+            tail = " ".join(x.split("info    :")[-1].strip()
+                            for x in log[i + 1:i + 4])
+            if "ILi72E" in line:
                 dtype = "bf16" if "bfloat16" in line else "f32"
                 print(f"[build] {n} <72, {dtype}>: {tail}")
+            elif n == "sort":
+                kind = "local_stages" if "local_stages" in line \
+                    else "global_stage"
+                form = "kv" if "ILb1E" in line else "keys"
+                print(f"[build] sort {kind} <{form}>: {tail}")
 
 
 def main() -> int:
@@ -498,9 +902,13 @@ def main() -> int:
     print(f"[card] {card}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     fails: list[str] = []
+    phase_s = {}
+    t_phase = time.perf_counter()
     build_phase()
+    phase_s["build"] = time.perf_counter() - t_phase
 
     # phase 3: smoke shape
+    t_phase = time.perf_counter()
     st, view, gt = make_scene(dev, 320, 192, 20_000, 1 << 15, seed=1)
     for mm_dtype in ("float32", "bfloat16"):
         check_backends(st, view, gt, mm_dtype, card, fails)
@@ -511,8 +919,10 @@ def main() -> int:
         del drv
     del st, view, gt
     torch.cuda.empty_cache()
+    phase_s["smoke_shape"] = time.perf_counter() - t_phase
 
     # phase 4: the main path
+    t_phase = time.perf_counter()
     st, view, gt = make_scene(dev, 1200, 680, 200_000, 1 << 18, seed=0)
     drv = StepLoop(st, view, gt, make_cfg(1 << 20, "bfloat16"))
     torch.cuda.synchronize()
@@ -569,6 +979,20 @@ def main() -> int:
           f"[{card}]")
     print(f"[clocks] kernel timing: {clk_kernels.summary()} [{card}]")
 
+    # the sort kernels at the main path's shapes
+    sort_errs, sort_times, sort_bnd = check_sorts(st, view, card, fails)
+    del drv, st, view, gt, fa, ba
+    torch.cuda.empty_cache()
+    phase_s["main"] = time.perf_counter() - t_phase
+
+    # phase 5: the online mapper
+    t_phase = time.perf_counter()
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    mapper_launches, _ = mapper_phase(dev, card, fails, str(out_dir))
+    phase_s["mapper"] = time.perf_counter() - t_phase
+    print(f"[phases] seconds {({k: round(v, 1) for k, v in phase_s.items()})}"
+          f", total {sum(phase_s.values()):.1f} [{card}]")
+
     rows = []
     for k, name, src, tpu in (
             ("fwd", "composite_fwd", "legslam_torch/csrc/composite_fwd.cu",
@@ -580,6 +1004,16 @@ def main() -> int:
                          ms=times[k], plain_ms=times[f"{k}_plain"],
                          bound_ms=b[k]["bound_ms"],
                          bound_by=b[k]["bound_by"], library_ms=None))
+    for name, tpu in (("sort_keys", "legslam_tpu/ops/pallas/sort.py:111"),
+                      ("sort_kv", "legslam_tpu/ops/pallas/sort.py:116")):
+        rows.append(dict(name=name, route="cuda",
+                         source="legslam_torch/csrc/sort.cu", replaces=tpu,
+                         launches=mapper_launches[name],
+                         max_abs_err=sort_errs[name], ms=sort_times[name],
+                         plain_ms=sort_times[f"{name}_plain"],
+                         bound_ms=sort_bnd[name]["bound_ms"],
+                         bound_by=sort_bnd[name]["bound_by"],
+                         library_ms=sort_times[f"{name}_lib"]))
     if fails:
         print("chip_smoke FAILED: " + "; ".join(fails), file=sys.stderr)
         return 1

@@ -1,0 +1,248 @@
+"""CLI: online RGB-D mapping over a dataset (examples/replica_rgbd.cpp).
+
+Counterpart of legslam_tpu/apps/replica_rgbd.py, with the same flags and
+output lines:
+
+  python -m legslam_torch.apps.replica_rgbd \
+      --data /path/to/Replica/office0 --out ./output/office0 \
+      [--cfg cfg/gaussian_mapper/RGB-D/Replica/office0.yaml] \
+      [--camera-cfg cfg/camera/RGB-D/Replica/office0.yaml] \
+      [--kf-stride 8] [--max-frames N] [--capacity 262144] [--no-lf] \
+      [--device cuda|cpu]
+
+Prints per-run "Average FPS" and "Total time" lines like the reference
+(examples/replica_rgbd.cpp:196-199) and writes the experiment/ply artifact
+tree, TrackingTime.txt, GpuPeakUsageMB.txt and the trajectory files.
+
+Not ported yet (they raise, see ROADMAP.md): `--frontend visual` and
+`--encoder-weights`. The JAX app's persistent XLA compilation cache has no
+counterpart: PyTorch runs eagerly and the kernels are built once into
+build/legslam_torch/.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import os
+import time
+
+import numpy as np
+import torch
+
+
+def save_peak_memory(path: str, device: torch.device) -> None:
+    """The reference's GpuPeakUsageMB.txt (examples/replica_rgbd.cpp:
+    280-294): one 'device peak_mb in_use_mb' line from PyTorch's caching
+    allocator."""
+    with open(path, "w") as f:
+        if device.type != "cuda":
+            f.write(f"{device} peak_mb=not measured\n")
+            return
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 20
+        cur = torch.cuda.memory_allocated(device) / 2 ** 20
+        f.write(f"{torch.cuda.get_device_name(device)} peak_mb={peak:.1f} "
+                f"in_use_mb={cur:.1f}\n")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--data", required=True)
+    parser.add_argument("--out", default="./output/run")
+    parser.add_argument("--cfg", default=None,
+                        help="gaussian_mapper YAML (cfg/gaussian_mapper/...)")
+    parser.add_argument("--camera-cfg", default=None,
+                        help="camera YAML (cfg/camera/...) overriding the "
+                             "dataset's intrinsics, incl. dist_coeffs")
+    parser.add_argument("--kf-stride", type=int, default=8)
+    parser.add_argument("--frontend", default="trajectory",
+                        choices=("trajectory", "visual"),
+                        help="trajectory = GT-pose playback; visual = "
+                        "KLT+RANSAC tracking (not ported yet)")
+    parser.add_argument("--sensor", default="auto",
+                        choices=("auto", "rgbd", "mono", "stereo",
+                                 "rgbd-inertial", "mono-inertial",
+                                 "stereo-inertial"),
+                        help="sensor mode for the mapper densify branch; "
+                        "auto sniffs the dataset (stereo pairs -> stereo, "
+                        "no depth -> mono, +'-inertial' with an IMU stream)")
+    parser.add_argument("--max-frames", type=int, default=None)
+    parser.add_argument("--capacity", type=int, default=1 << 18)
+    parser.add_argument("--iters-per-frame", type=int, default=1)
+    parser.add_argument("--encoder-weights", default=None,
+                        help="dir with dinov2.npz/pca.npz for the LF "
+                        "encoder (not ported yet)")
+    parser.add_argument("--no-lf", action="store_true")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--max-per-tile", type=int, default=2048,
+                        help="per-tile compositing cap (torch backend)")
+    parser.add_argument("--tile-batch", type=int, default=32)
+    parser.add_argument("--chunk", type=int, default=None,
+                        help="compositing depth-chunk size (default: "
+                             "RasterizeConfig.chunk; small scenes can "
+                             "drop to 64)")
+    parser.add_argument("--max-span-x", type=int, default=None)
+    parser.add_argument("--max-span-y", type=int, default=None,
+                        help="static per-gaussian tile-span caps "
+                             "(pairs beyond them are dropped and counted "
+                             "in overflow_pairs)")
+    parser.add_argument("--backend", default="cuda",
+                        help="compositing backend (cuda|torch)")
+    parser.add_argument("--mm-dtype", default=None,
+                        help="pair feature type of the cuda kernels "
+                        "(bfloat16|float32; default bfloat16 on cuda)")
+    parser.add_argument("--n-views", type=int, default=1,
+                        help="keyframes per mapping tick (only 1 is ported)")
+    parser.add_argument("--spatial-strips", type=int, default=1,
+                        help="tile-row strips per view (only 1 is ported)")
+    parser.add_argument("--shard-store", action="store_true",
+                        help="capacity-shard the store (not ported yet)")
+    parser.add_argument("--binning-refresh", type=int, default=4,
+                        help="per-view binning cache interval (1 = exact)")
+    parser.add_argument("--profile-dir", default=None,
+                        help="write a torch.profiler trace of the mapping "
+                             "loop to this dir")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device of the map and the step")
+    args = parser.parse_args(argv)
+
+    if args.frontend == "visual":
+        raise NotImplementedError(
+            "--frontend visual: slam/tracking.py is not ported to "
+            "legslam_torch yet; see ROADMAP.md")
+    if args.encoder_weights and not args.no_lf:
+        raise NotImplementedError(
+            "--encoder-weights: the language-feature encoder is not ported "
+            "to legslam_torch yet; see ROADMAP.md")
+
+    from legslam_torch.config import RasterizeConfig
+    from legslam_torch.data.datasets import open_dataset
+    from legslam_torch.mapper.mapper import GaussianMapper
+    from legslam_torch.slam.trajectory import TrajectoryFrontend
+
+    device = torch.device(args.device)
+    backend = args.backend
+    mm = args.mm_dtype or ("bfloat16" if backend == "cuda" else "float32")
+    extra = {k: v for k, v in (("chunk", args.chunk),
+                               ("max_span_x", args.max_span_x),
+                               ("max_span_y", args.max_span_y)) if v}
+    cfg = RasterizeConfig(backend=backend, tile_batch=args.tile_batch,
+                          mm_dtype=mm, **extra)
+    opt = mp = None
+    cam_intr = None
+    if args.cfg:
+        from legslam_torch.config import load_run_config
+        opt, mp, cam_intr = load_run_config(args.cfg, args.camera_cfg)
+    elif args.camera_cfg:
+        from legslam_torch.config import (intrinsics_from_yaml,
+                                          load_opencv_yaml)
+        cam_intr = intrinsics_from_yaml(load_opencv_yaml(args.camera_cfg))
+    ds = open_dataset(args.data)
+    intr = {**ds.intrinsics, **(cam_intr or {})}
+    sensor = args.sensor
+    if sensor == "auto":
+        # loaders with right images are stereo; with no depth, monocular
+        # (System.h:67-75 sensor enum)
+        probe = ds.read(0)
+        if getattr(probe, "color_right", None) is not None:
+            sensor = "stereo"
+        elif probe.depth is None:
+            sensor = "mono"
+        else:
+            sensor = "rgbd"
+        if getattr(ds, "imu_between", None) is not None and \
+                getattr(ds, "_imu", None) is not None:
+            sensor += "-inertial"
+    base_sensor = sensor[:-len("-inertial")] if \
+        sensor.endswith("-inertial") else sensor
+    frontend = TrajectoryFrontend(intr, kf_stride=args.kf_stride)
+    mapper = GaussianMapper(frontend.queue, intr, opt=opt, mp=mp, cfg=cfg,
+                            capacity=args.capacity, result_dir=args.out,
+                            seed=args.seed, max_per_tile=args.max_per_tile,
+                            include_lang_feat=not args.no_lf,
+                            binning_refresh_interval=args.binning_refresh,
+                            n_views=args.n_views,
+                            spatial_strips=args.spatial_strips,
+                            shard_store=args.shard_store,
+                            sensor_type="monocular" if base_sensor == "mono"
+                            else base_sensor, device=device)
+
+    n = len(ds) if args.max_frames is None else min(len(ds),
+                                                    args.max_frames)
+    track_times = []
+    prof = contextlib.nullcontext()
+    if args.profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+        prof = profile(activities=acts)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t_start = time.perf_counter()
+    it = iter(ds.iter_prefetched())
+    with prof:
+        for _ in range(n):
+            frame = next(it)
+            t0 = time.perf_counter()
+            frontend.track(frame, lf_image=None)
+            mapper.drain_operations()
+            if mapper.state is None and mapper.has_met_initial_conditions():
+                mapper.initialize_map()
+            if mapper.state is not None:
+                for _ in range(args.iters_per_frame):
+                    mapper.train_iteration()
+            track_times.append(time.perf_counter() - t0)
+    if args.profile_dir:
+        os.makedirs(args.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.profile_dir,
+                                              "trace.json"))
+    total = time.perf_counter() - t_start
+    frontend.finish()
+
+    # short sequences may never hit min_num_initial_map_kfs while feeding;
+    # the feed is done now, so force initialization from whatever arrived
+    mapper.drain_operations(limit=10_000)
+    if mapper.state is None and len(mapper.keyframes):
+        mapper.initialize_map()
+
+    # tail optimization + artifacts (gaussian_mapper.cpp:538-553)
+    for _ in range(int(0.8 * mapper.opt.densification_interval)):
+        mapper.train_iteration()
+    base = mapper.save("experiment")
+    stats = mapper.record_keyframe_metrics("experiment")
+
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "TrackingTime.txt"), "w") as f:
+        f.writelines(f"{t}\n" for t in track_times)
+    save_peak_memory(os.path.join(args.out, "GpuPeakUsageMB.txt"), device)
+    # trajectory artifacts in all three reference formats
+    # (System::SaveTrajectoryTUM/EuRoC/KITTI, examples/replica_rgbd.cpp:
+    # 208-218; GT-pose frontend: poses are the input poses)
+    from legslam_torch.utils.trajectory_io import (save_trajectory_euroc,
+                                                   save_trajectory_kitti,
+                                                   save_trajectory_tum)
+    stamps, c2ws = [], []
+    for fid, kf in sorted(mapper.keyframes.items()):
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = kf.R.T
+        T[:3, 3] = -(kf.R.T @ kf.t)
+        stamps.append(kf.timestamp)
+        c2ws.append(T)
+    save_trajectory_tum(
+        os.path.join(args.out, "CameraTrajectory_TUM.txt"), stamps, c2ws)
+    save_trajectory_euroc(
+        os.path.join(args.out, "CameraTrajectory_EuRoC.txt"), stamps, c2ws)
+    save_trajectory_kitti(
+        os.path.join(args.out, "CameraTrajectory_KITTI.txt"), stamps, c2ws)
+
+    print(f"Total time: {total:.2f}")
+    print(f"Average FPS: {n / total:.3f}")
+    print(f"Keyframes: {len(mapper.keyframes)}  "
+          f"Gaussians: {int(mapper.state.num_valid())}  "
+          f"Iterations: {mapper.iteration}")
+    print(f"PSNR-GS: {stats['psnr']:.2f}  DSSIM: {stats['dssim']:.4f}  "
+          f"render: {stats['render_ms']:.1f} ms")
+    print(f"Artifacts: {base}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,13 +1,17 @@
 """Numeric constants and configuration dataclasses of the port.
 
-A copy of the constants and dataclasses of legslam_tpu/config.py that the
-mapping step needs (the port imports nothing from the JAX package).
+A copy of the constants, dataclasses and YAML loaders of
+legslam_tpu/config.py that the mapping step and the online mapper need
+(the port imports nothing from the JAX package).
 Parity-critical constants mirror the reference CUDA implementation:
 cuda_rasterizer/config.h:15-18, auxiliary.h:21-44, forward.cu:82-357.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
+
+import numpy as np
 
 # Rasterizer constants (reference: cuda_rasterizer/config.h, auxiliary.h)
 LF_CHANNELS = 64          # language-feature channels
@@ -101,6 +105,47 @@ class OptimizationParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class MapperParams:
+    """Online mapper parameters (gaussian_mapper.cpp:223-359 config surface)."""
+
+    min_num_initial_map_kfs: int = 15
+    new_keyframe_times_of_use: int = 8
+    local_BA_increased_times_of_use: int = 0
+    loop_closure_increased_times_of_use: int = 2
+    cull_keyframes: bool = True
+    large_rot_th: float = 20.0
+    large_trans_th: float = 0.5
+    stable_num_iter_existence: int = 30
+    do_gaus_pyramid_training: bool = True
+    num_gaus_pyramid_sub_levels: int = 2
+    gaus_pyramid_times_of_use: tuple = (8, 8)
+    do_inactive_geo_densify: bool = True
+    depth_cache: int = 10
+    min_num_inactive_geo_densify: int = 30
+    max_depth_cached: int = 10
+    rgbd_min_depth: float = 1e-10
+    rgbd_max_depth: float = 40.0
+    # Monocular.inactive_geo_densify_max_pixel_dist (squared-dist units in
+    # the reference YAML comment; we treat it as pixels)
+    mono_max_pixel_dist: float = 1.0
+    # Stereo.min_disparity / Stereo.num_disparity (SGM window)
+    stereo_min_disparity: int = 8
+    stereo_num_disparity: int = 128
+    position_lr_max_steps_slam: int = 24   # per-KF use-count LR clamp
+    keep_training_after_shutdown: bool = False
+    # Screen-radius cap (px) applied to the 3-NN scale init of INGESTED
+    # points: a sparse per-keyframe corner cloud (~1k points) has 3-NN
+    # distances that init gaussians with 100+ px footprints, which the
+    # static tile-span caps then truncate (measured 98% of their pair
+    # candidates dropped). The reference prunes any gaussian past
+    # size_th=20 px once big-point pruning is armed
+    # (gaussian_mapper.cpp:737-755, gaussian_model.cpp:806-826), so the
+    # cap enforces at creation the bound training converges to anyway.
+    # 0 disables (raw distCUDA2 init, reference create semantics).
+    ingest_scale_clamp_px: float = 20.0
+
+
+@dataclasses.dataclass(frozen=True)
 class RasterizeConfig:
     """Static configuration of the tile rasterizer.
 
@@ -132,6 +177,12 @@ class RasterizeConfig:
     max_pairs: int = 1 << 20
     power_mode: str = "vpu"
     mm_dtype: str = "float32"
+    # sort binning's depth order and pair keys with the hand-written
+    # bitonic sort kernels (ops/cuda/sort.py), the counterpart of
+    # legslam_tpu's pallas_sort; off by default, as there. Ties come out
+    # in the order of a stable sort, so the Binning is the same bit for
+    # bit either way.
+    cuda_sort: bool = False
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -141,3 +192,180 @@ class RasterizeConfig:
 
     def span(self) -> int:
         return self.max_span_x * self.max_span_y
+
+
+def _coerce(value: str) -> Any:
+    for cast in (int, float):
+        try:
+            return cast(value)
+        except ValueError:
+            pass
+    if value in ("true", "True"):
+        return True
+    if value in ("false", "False"):
+        return False
+    return value
+
+
+def load_opencv_yaml(path: str) -> dict:
+    """Parse the reference's OpenCV FileStorage YAML ("%YAML:1.0") configs.
+
+    Reference read sites: src/gaussian_mapper.cpp:223-359. OpenCV YAML is not
+    valid YAML 1.1 (the "%YAML:1.0" directive and bare keys with dots), so we
+    parse the `key: value` lines directly.
+    """
+    out: dict = {}
+    with open(path, "r") as f:
+        lines = f.readlines()
+    i = 0
+    while i < len(lines):
+        line = lines[i].split("#", 1)[0].strip()
+        i += 1
+        if not line or line.startswith("%") or line.startswith("---"):
+            continue
+        if ":" not in line:
+            continue
+        key, _, value = line.partition(":")
+        key, value = key.strip(), value.strip().strip('"')
+        if value == "!!opencv-matrix":
+            # multi-line matrix block (rows/cols/dt/data, data may wrap;
+            # cv::FileStorage syntax, e.g. Stereo.T_c1_c2 in
+            # cfg/ORB_SLAM3/Stereo/EuRoC/EuRoC.yaml)
+            rows = cols = 0
+            buf = ""
+            in_data = False
+            while i < len(lines):
+                sub = lines[i].split("#", 1)[0].strip()
+                if not in_data and sub and not sub.startswith(
+                        ("rows:", "cols:", "dt:", "data:")):
+                    break
+                i += 1
+                if sub.startswith("rows:"):
+                    rows = int(sub.split(":", 1)[1])
+                elif sub.startswith("cols:"):
+                    cols = int(sub.split(":", 1)[1])
+                elif sub.startswith("data:"):
+                    in_data = True
+                    buf += sub.split(":", 1)[1]
+                elif in_data:
+                    buf += " " + sub
+                if in_data and "]" in buf:
+                    break
+            vals = [float(v) for v in
+                    buf.strip().lstrip("[").rstrip("]").replace(",", " ")
+                    .split()]
+            out[key] = np.asarray(vals, np.float64).reshape(rows, cols)
+            continue
+        if not value:
+            continue
+        out[key] = _coerce(value)
+    return out
+
+
+def optimization_from_yaml(cfg: dict) -> OptimizationParams:
+    """OptimizationParams from a gaussian_mapper YAML dict (read-site
+    parity: src/gaussian_mapper.cpp:313-359 key names). Missing keys keep
+    the dataclass defaults; language_feature_lr intentionally has no YAML
+    key (the reference never reads one)."""
+    m = {
+        "iterations": "Optimization.max_num_iterations",
+        "position_lr_init": "Optimization.position_lr_init",
+        "position_lr_final": "Optimization.position_lr_final",
+        "position_lr_delay_mult": "Optimization.position_lr_delay_mult",
+        "position_lr_max_steps": "Optimization.position_lr_max_steps",
+        "feature_lr": "Optimization.feature_lr",
+        "opacity_lr": "Optimization.opacity_lr",
+        "scaling_lr": "Optimization.scaling_lr",
+        "rotation_lr": "Optimization.rotation_lr",
+        "percent_dense": "Optimization.percent_dense",
+        "lambda_dssim": "Optimization.lambda_dssim",
+        "densification_interval": "Optimization.densification_interval",
+        "opacity_reset_interval": "Optimization.opacity_reset_interval",
+        "prune_big_point_after_iter":
+            "Optimization.prune_big_point_after_iter",
+        "densify_min_opacity": "Optimization.densify_min_opacity",
+        "densify_from_iter": "Optimization.densify_from_iter",
+        "densify_until_iter": "Optimization.densify_until_iter",
+        "densify_grad_threshold": "Optimization.densify_grad_threshold",
+        "sh_degree": "Model.sh_degree",
+    }
+    kw = {f: cfg[k] for f, k in m.items() if k in cfg}
+    return OptimizationParams(**kw)
+
+
+def mapper_params_from_yaml(cfg: dict) -> MapperParams:
+    """MapperParams from a gaussian_mapper YAML dict
+    (src/gaussian_mapper.cpp:241-297 key names; note the reference's key
+    `Mapper.loop_closure_increased_times_of_use_` trailing underscore)."""
+    kw: dict = {}
+    scalar = {
+        "min_num_initial_map_kfs": "Mapper.min_num_initial_map_kfs",
+        "new_keyframe_times_of_use": "Mapper.new_keyframe_times_of_use",
+        "local_BA_increased_times_of_use":
+            "Mapper.local_BA_increased_times_of_use",
+        "loop_closure_increased_times_of_use":
+            "Mapper.loop_closure_increased_times_of_use_",
+        "large_rot_th": "Mapper.large_rotation_threshold",
+        "large_trans_th": "Mapper.large_translation_threshold",
+        "stable_num_iter_existence": "Mapper.stable_num_iter_existence",
+        "depth_cache": "Mapper.depth_cache",
+        "num_gaus_pyramid_sub_levels": "GausPyramid.num_sub_levels",
+        "rgbd_min_depth": "RGBD.min_depth",
+        "rgbd_max_depth": "RGBD.max_depth",
+        "mono_max_pixel_dist":
+            "Monocular.inactive_geo_densify_max_pixel_dist",
+        "stereo_min_disparity": "Stereo.min_disparity",
+        "stereo_num_disparity": "Stereo.num_disparity",
+        "position_lr_max_steps_slam": "Optimization.position_lr_max_steps",
+    }
+    for f, k in scalar.items():
+        if k in cfg:
+            kw[f] = cfg[k]
+    for f, k in (("cull_keyframes", "Mapper.cull_keyframes"),
+                 ("do_inactive_geo_densify", "Mapper.inactive_geo_densify"),
+                 ("do_gaus_pyramid_training", "GausPyramid.do")):
+        if k in cfg:
+            kw[f] = bool(cfg[k])
+    n_sub = kw.get("num_gaus_pyramid_sub_levels",
+                   MapperParams.num_gaus_pyramid_sub_levels)
+    tou = cfg.get("GausPyramid.sub_level_times_of_use")
+    if tou is not None:
+        kw["gaus_pyramid_times_of_use"] = (int(tou),) * int(n_sub)
+    return MapperParams(**kw)
+
+
+def intrinsics_from_yaml(cfg: dict) -> dict:
+    """Intrinsics dict from a camera YAML (Camera1.* key names as in
+    cfg/ORB_SLAM3/RGB-D/*/*.yaml). Includes dist_coeffs when any of
+    k1/k2/p1/p2/k3 is nonzero and depth_scale from RGBD.DepthMapFactor."""
+    intr = dict(
+        fx=float(cfg["Camera1.fx"]), fy=float(cfg["Camera1.fy"]),
+        cx=float(cfg["Camera1.cx"]), cy=float(cfg["Camera1.cy"]),
+        width=int(cfg["Camera.width"]), height=int(cfg["Camera.height"]))
+    dist = tuple(float(cfg.get(f"Camera1.{k}", 0.0))
+                 for k in ("k1", "k2", "p1", "p2", "k3"))
+    if any(dist):
+        intr["dist_coeffs"] = dist
+    if "RGBD.DepthMapFactor" in cfg:
+        intr["depth_scale"] = float(cfg["RGBD.DepthMapFactor"])
+    if "Stereo.b" in cfg:
+        intr["stereo_baseline"] = float(cfg["Stereo.b"])
+    elif "Stereo.T_c1_c2" in cfg:
+        # EuRoC-style extrinsic calibration: baseline = ||translation||
+        # of the cam1->cam2 transform (cfg/ORB_SLAM3/Stereo/EuRoC/
+        # EuRoC.yaml Stereo.T_c1_c2)
+        T = np.asarray(cfg["Stereo.T_c1_c2"], np.float64)
+        intr["stereo_baseline"] = float(np.linalg.norm(T[:3, 3]))
+    return intr
+
+
+def load_run_config(mapper_yaml: str, camera_yaml: str | None = None
+                    ) -> tuple[OptimizationParams, MapperParams,
+                               dict | None]:
+    """Load (OptimizationParams, MapperParams, intrinsics-or-None) from the
+    cfg tree, the equivalent of GaussianMapper::readConfigFromFile +
+    the ORB-SLAM3 settings read (gaussian_mapper.cpp:223-359, 100-176)."""
+    d = load_opencv_yaml(mapper_yaml)
+    intr = intrinsics_from_yaml(load_opencv_yaml(camera_yaml)) \
+        if camera_yaml else None
+    return optimization_from_yaml(d), mapper_params_from_yaml(d), intr

@@ -92,13 +92,18 @@ def train_step(state: G.GaussianState,
     loss = losses.mapping_loss(
         out.color, gt_color, out.lang_feat, gt_lang_feat, out.depth,
         gt_depth, mask, opt.lambda_dssim)
-    grads = torch.autograd.grad(loss, [*leaves.values(), offset0])
+    # without language features the lang_feat leaf is unused: zero grad
+    grads = torch.autograd.grad(loss, [*leaves.values(), offset0],
+                                allow_unused=True)
 
     # zero grads of invalid slots so their Adam moments only decay
-    def masked(g):
+    def masked(g, leaf):
+        if g is None:
+            return torch.zeros_like(leaf)
         return torch.where(state.valid.view((-1,) + (1,) * (g.ndim - 1)),
                            g, 0.0)
-    g_params = G.GaussianParams(*(masked(g) for g in grads[:-1]))
+    g_params = G.GaussianParams(*(masked(g, leaf) for g, leaf in
+                                  zip(grads[:-1], leaves.values())))
 
     # densification stats in the reference's NDC convention
     g2d = grads[-1]

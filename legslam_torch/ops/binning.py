@@ -18,6 +18,13 @@ Within a tile, ascending key order is ascending depth order
 the chunked, cond-skipped id lookups of the JAX version are TPU
 workarounds; here the full emission buffer is sorted once and the ids
 are looked up with one gather.
+
+With RasterizeConfig.cuda_sort, steps 1 and 3 run on the hand-written
+bitonic sort kernels (ops/cuda/sort.py; legslam_tpu/ops/binning.py:241-245
+and :297-312 with pallas_sort): the depth order through argsort_f32, and
+the key buffer, padded to a power of two with INT32_MAX, through
+sort_keys. Both order ties as a stable sort does, so the Binning is the
+same bit for bit with the flag on or off.
 """
 from __future__ import annotations
 
@@ -151,26 +158,34 @@ class Binning(NamedTuple):
     span_overflow: torch.Tensor  # [] pairs lost to the static tile-span cap
 
 
-@torch.no_grad()
-def bin_gaussians(pre: Preprocessed, width: int, height: int,
-                  cfg: RasterizeConfig,
-                  opacity: torch.Tensor | None = None) -> Binning:
-    """Pair lists and tile ranges of the preprocessed gaussians. Passing
-    the activated `opacity` enables the exact opacity-aware cull
-    (effective_radius + _corner_cull, render-exact: a culled pair cannot
-    clear the kernels' alpha >= 1/255 keep mask anywhere in its tile)."""
-    P = pre.mean2d.shape[0]
-    dev = pre.mean2d.device
+def _tile_grid(width: int, height: int, cfg: RasterizeConfig):
     ntx = -(-width // cfg.tile_w)
     nty = -(-height // cfg.tile_h)
+    return ntx, nty
+
+
+@torch.no_grad()
+def pair_keys(pre: Preprocessed, width: int, height: int,
+              cfg: RasterizeConfig, opacity: torch.Tensor | None = None):
+    """Steps 1-2 of the binning: (order, key, num_rendered, span_overflow)
+    with `order` the [P] depth order and `key` the unsorted [S*P] int32
+    pair keys, tile * P + depth rank, ntiles * P where a span slot emits
+    nothing."""
+    P = pre.mean2d.shape[0]
+    dev = pre.mean2d.device
+    ntx, nty = _tile_grid(width, height, cfg)
     ntiles = ntx * nty
     if ntiles * (P + 1) >= 2 ** 31:
         raise ValueError(
             f"packed binning key overflow: ntiles={ntiles} P={P}; "
             "reduce capacity or enlarge tiles")
 
-    depth_key = torch.where(pre.mask, pre.depth, float("inf"))
-    order = torch.argsort(depth_key, stable=True).to(torch.int32)
+    if cfg.cuda_sort:
+        from legslam_torch.ops.cuda.sort import argsort_f32
+        order = argsort_f32(pre.depth, pre.mask)[:P]
+    else:
+        depth_key = torch.where(pre.mask, pre.depth, float("inf"))
+        order = torch.argsort(depth_key, stable=True).to(torch.int32)
 
     r_bin = pre.radius if opacity is None else \
         effective_radius(pre.radius, opacity)
@@ -193,7 +208,6 @@ def bin_gaussians(pre: Preprocessed, width: int, height: int,
     # order, so the [S, P] buffer is sorted as it lies
     key = torch.where(in_span, tid * P + rank_of[None, :],
                       sentinel).reshape(-1)
-    key_sorted = torch.sort(key).values
     num_valid = in_span.sum(dtype=torch.int32)
     # pairs a gaussian would emit beyond the static span cap (the
     # reference never drops pairs, rasterizer_impl.cu:280-320)
@@ -201,6 +215,29 @@ def bin_gaussians(pre: Preprocessed, width: int, height: int,
         valid, span_x * span_y
         - torch.clamp_max(span_x, msx) * torch.clamp_max(span_y, msy),
         0).sum(dtype=torch.int32)
+    return order, key, num_valid, span_overflow
+
+
+@torch.no_grad()
+def bin_gaussians(pre: Preprocessed, width: int, height: int,
+                  cfg: RasterizeConfig,
+                  opacity: torch.Tensor | None = None) -> Binning:
+    """Pair lists and tile ranges of the preprocessed gaussians. Passing
+    the activated `opacity` enables the exact opacity-aware cull
+    (effective_radius + _corner_cull, render-exact: a culled pair cannot
+    clear the kernels' alpha >= 1/255 keep mask anywhere in its tile)."""
+    P = pre.mean2d.shape[0]
+    dev = pre.mean2d.device
+    ntx, nty = _tile_grid(width, height, cfg)
+    ntiles = ntx * nty
+    sentinel = ntiles * P
+    order, key, num_valid, span_overflow = pair_keys(pre, width, height, cfg,
+                                                     opacity)
+    if cfg.cuda_sort:
+        from legslam_torch.ops.cuda.sort import pad_keys, sort_keys
+        key_sorted = sort_keys(pad_keys(key))[:key.shape[0]]
+    else:
+        key_sorted = torch.sort(key).values
     # the kernels only read the first max_pairs sorted entries
     npair = key_sorted.shape[0]
     keep = min(cfg.max_pairs, npair) if cfg.backend == "cuda" else npair

@@ -37,6 +37,15 @@ def psnr(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
     return 10.0 * torch.log10(1.0 / mse)
 
 
+def psnr_gaussian_splatting(img1: torch.Tensor, img2: torch.Tensor
+                            ) -> torch.Tensor:
+    """Per-channel MSE, then 20*log10(1/sqrt(mse)), averaged over the
+    channels (loss_utils.h:46). Channel-last input; the reference views
+    [C, -1]."""
+    mse = torch.mean((img1 - img2) ** 2, dim=(0, 1))
+    return torch.mean(20.0 * torch.log10(1.0 / torch.sqrt(mse)))
+
+
 def _lf_cos_masked(pred: torch.Tensor, gt: torch.Tensor,
                    mask: torch.Tensor | None, eps: float) -> torch.Tensor:
     """Mean over pixels of cosine(mask * pred, gt) along the channel axis,

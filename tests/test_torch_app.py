@@ -1,0 +1,119 @@
+"""legslam_torch.apps.replica_rgbd end to end over an on-disk Replica
+layout, on the CPU (the "cuda" backend's kernel wrappers run their plain
+versions on CPU tensors), as tests/test_app_e2e.py drives the JAX app: a
+tiny synthetic scene written as results/frame*.jpg + depth*.png +
+traj.txt, the real CLI main(), and every artifact a reference run writes.
+"""
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from legslam_torch.data.synthetic import SyntheticDataset
+
+torch.set_num_threads(1)
+
+N_FRAMES = 10
+W, H = 160, 96
+
+FAST_ARGS = ["--kf-stride", "2", "--capacity", "4096", "--no-lf",
+             "--iters-per-frame", "1", "--binning-refresh", "2",
+             "--chunk", "64", "--tile-batch", "4", "--max-per-tile", "512",
+             "--max-span-x", "3", "--max-span-y", "8", "--device", "cpu"]
+
+MAPPER_YAML = """%YAML:1.0
+Optimization.densification_interval: 20
+Optimization.densify_from_iter: 8
+Mapper.min_num_initial_map_kfs: 4
+Mapper.new_keyframe_times_of_use: 4
+"""
+
+
+@pytest.fixture(scope="module")
+def replica_scene(tmp_path_factory):
+    """<scene>/results/frameNNNN.jpg + depthNNNN.png + traj.txt."""
+    import cv2
+
+    from legslam_torch.data.datasets import REPLICA_DEPTH_SCALE
+    ds = SyntheticDataset(n_frames=N_FRAMES, width=W, height=H,
+                          n_gaussians=2500, seed=7, clutter_ratio=0.0,
+                          revolutions=0.2, device="cpu")
+    scene = tmp_path_factory.mktemp("replica_office_tiny")
+    res = scene / "results"
+    res.mkdir()
+    rows = []
+    for i in range(N_FRAMES):
+        f = ds.read(i)
+        bgr = cv2.cvtColor((f.color * 255).astype(np.uint8),
+                           cv2.COLOR_RGB2BGR)
+        assert cv2.imwrite(str(res / f"frame{i:06d}.jpg"), bgr,
+                           [cv2.IMWRITE_JPEG_QUALITY, 95])
+        d = np.clip(f.depth * REPLICA_DEPTH_SCALE, 0, 65535).astype(np.uint16)
+        assert cv2.imwrite(str(res / f"depth{i:06d}.png"), d)
+        rows.append(f.c2w.reshape(-1))
+    np.savetxt(str(scene / "traj.txt"), np.stack(rows))
+    return scene
+
+
+def test_replica_layout_cli_end_to_end(replica_scene, tmp_path, capsys):
+    from legslam_torch.apps.replica_rgbd import main
+    from legslam_torch.data.datasets import ReplicaDataset, open_dataset
+    from legslam_torch.utils import ply
+    assert isinstance(open_dataset(str(replica_scene)), ReplicaDataset)
+    cfg = tmp_path / "tiny_rgbd.yaml"
+    cfg.write_text(MAPPER_YAML)
+    out = str(tmp_path / "run")
+    main(["--data", str(replica_scene), "--out", out, "--cfg", str(cfg)]
+         + FAST_ARGS)
+    text = capsys.readouterr().out
+    for line in ("Total time:", "Average FPS:", "Keyframes: 5",
+                 "PSNR-GS:", "Artifacts:"):
+        assert line in text, text
+
+    base = os.path.join(out, "experiment", "ply")
+    data = ply.load_gaussian_ply(
+        os.path.join(base, "point_cloud", "point_cloud.ply"))
+    assert data["xyz"].shape[0] > 100
+    assert data["lang_feat"].shape[1] == 64
+    assert np.isfinite(data["xyz"]).all()
+    assert os.path.exists(os.path.join(base, "input.ply"))
+    with open(os.path.join(base, "cfg_args")) as f:
+        assert "data_device='cpu'" in f.read()
+    with open(os.path.join(base, "cameras.json")) as f:
+        cams = json.load(f)
+    assert len(cams) == 5 and {"fx", "position", "rotation"} <= set(cams[0])
+    with open(os.path.join(out, "TrackingTime.txt")) as f:
+        assert len(f.readlines()) == N_FRAMES
+    with open(os.path.join(out, "GpuPeakUsageMB.txt")) as f:
+        assert f.read() == "cpu peak_mb=not measured\n"
+    tum = np.loadtxt(os.path.join(out, "CameraTrajectory_TUM.txt"))
+    assert tum.shape == (5, 8)
+    kitti = np.loadtxt(os.path.join(out, "CameraTrajectory_KITTI.txt"))
+    assert kitti.shape == (5, 12)
+    euroc = np.loadtxt(os.path.join(out, "CameraTrajectory_EuRoC.txt"))
+    assert euroc.shape == (5, 8)
+    # the trajectory files hold the input poses (GT-pose frontend)
+    traj = np.loadtxt(str(replica_scene / "traj.txt")).reshape(-1, 4, 4)
+    np.testing.assert_allclose(kitti[1].reshape(3, 4), traj[2][:3],
+                               atol=1e-5)
+    exp = os.path.join(out, "experiment")
+    psnrs = np.atleast_1d(np.loadtxt(
+        os.path.join(exp, "psnr_gaussian_splatting.txt")))
+    assert psnrs.shape == (5,)
+    assert np.atleast_1d(np.loadtxt(os.path.join(exp, "dssim.txt"))).shape \
+        == (5,)
+    assert np.atleast_1d(np.loadtxt(
+        os.path.join(exp, "render_time.txt"))).shape == (5,)
+    # jpg-lossy GT and ~20 iterations: a loose floor, the check is that
+    # training ran and rendered something resembling the inputs
+    assert float(psnrs.mean()) > 12.0, psnrs
+
+
+@pytest.mark.parametrize("flags", [["--frontend", "visual"],
+                                   ["--encoder-weights", "weights"]])
+def test_unported_options_raise(replica_scene, tmp_path, flags):
+    from legslam_torch.apps.replica_rgbd import main
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main(["--data", str(replica_scene), "--out", str(tmp_path)] + flags)

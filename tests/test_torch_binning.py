@@ -80,6 +80,52 @@ def test_bin_gaussians_bit_exact(pre_np, span, cull, compositor):
         assert int(bt.span_overflow) > 0
 
 
+@pytest.mark.parametrize("cull", [True, False])
+def test_cuda_sort_binning_matches_pallas_sort(pre_np, cull):
+    """cuda_sort=True (the sort kernels' plain versions here) against the
+    JAX Pallas bitonic sorts in interpret mode. The Pallas network leaves
+    tied keys in no fixed order, so the scene is asserted to have distinct
+    valid depths; the invalid gaussians (all tied at FLT_MAX) end the depth
+    order in an order of its own there, so that tail is compared as a
+    set. Every other field, the valid prefix of the order included, is
+    bit for bit."""
+    pj, pt = _both(pre_np)
+    pre, op = pre_np
+    depth = pre["depth"][pre["mask"]]
+    assert np.unique(depth).size == depth.size > 100
+    kw = dict(chunk=64, max_pairs=1 << 12)
+    bj = JB.bin_gaussians(pj, W, H, JaxCfg(**kw, backend="pallas",
+                                           pallas_sort=True,
+                                           pallas_interpret=True),
+                          opacity=jnp.asarray(op) if cull else None)
+    bt = TB.bin_gaussians(pt, W, H, RasterizeConfig(**kw, backend="cuda",
+                                                    cuda_sort=True),
+                          opacity=t_(op) if cull else None)
+    nv = int(pre["mask"].sum())
+    np.testing.assert_array_equal(np_(bt.order)[:nv], np_(bj.order)[:nv])
+    np.testing.assert_array_equal(np.sort(np_(bt.order)[nv:]),
+                                  np.sort(np_(bj.order)[nv:]))
+    for field in bj._fields[1:]:
+        np.testing.assert_array_equal(np_(getattr(bt, field)),
+                                      np_(getattr(bj, field)),
+                                      err_msg=field)
+    assert int(bt.num_rendered) > 0
+
+
+def test_cuda_sort_binning_equals_torch_sort_with_ties(pre_np):
+    """The sort kernels order ties as a stable sort does, so the flag does
+    not change the Binning, bit for bit, even where depths tie."""
+    pre, op = pre_np
+    tied = dict(pre, depth=np.round(pre["depth"] * 8.0) / 8.0)
+    d = tied["depth"][tied["mask"]]
+    assert np.unique(d).size < d.size
+    pt = Preprocessed(**{k: t_(v) for k, v in tied.items()})
+    out = [TB.bin_gaussians(pt, W, H, RasterizeConfig(
+        chunk=64, max_pairs=1 << 12, backend="cuda", cuda_sort=flag),
+        opacity=t_(op)) for flag in (False, True)]
+    _assert_binning_equal(*out)
+
+
 def test_tile_rect_and_effective_radius_exact(pre_np):
     pre, op = pre_np
     rj = JB.effective_radius(jnp.asarray(pre["radius"]), jnp.asarray(op))
@@ -135,7 +181,8 @@ def test_trim_of_real_binning_bit_exact(pre_np):
     cfg_j = JaxCfg(chunk=64, max_pairs=1 << 12, backend="pallas")
     cfg_t = RasterizeConfig(**{f.name: getattr(cfg_j, f.name) for f in
                                dataclasses.fields(RasterizeConfig)
-                               if f.name != "backend"}, backend="cuda")
+                               if f.name not in ("backend", "cuda_sort")},
+                            backend="cuda")
     op = pre_np[1]
     bj = JB.bin_gaussians(pj, W, H, cfg_j, opacity=jnp.asarray(op))
     bt = TB.bin_gaussians(pt, W, H, cfg_t, opacity=t_(op))

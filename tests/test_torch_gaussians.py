@@ -124,3 +124,156 @@ def test_adam_matches_torch_optim():
         TG.adam_update(ts, TG.GaussianParams(**grads), lrs)
     for n in TG.GROUPS:
         assert_close(getattr(ts.params, n), ref[n].detach(), 1e-6, 1e-5, n)
+
+
+# --- the store surgery of the online mapper --------------------------------
+# Points on a 1/8 lattice: their squared distances are exact in float32 on
+# both sides, so the 3-NN scale init agrees to an ulp of the log and the
+# surgery's params hold at atol 1e-6; masks, slots and counts bit-exact.
+
+SURGERY_ATOL = 1e-6
+
+
+def _lattice(n, seed):
+    rng = np.random.default_rng(seed)
+    pts = (rng.integers(-24, 24, size=(n, 3)) / 8.0).astype(np.float32)
+    return pts, rng.uniform(size=(n, 3)).astype(np.float32), rng
+
+
+def _both_states(js):
+    return js, TG.state_from_numpy(jax_state_tree(js), device="cpu")
+
+
+def _assert_states(ts, js):
+    _assert_tree_close(TG.state_to_numpy(ts), jax_state_tree(js),
+                       atol=SURGERY_ATOL, rtol=0)
+
+
+def test_allocate_slots_matches():
+    rng = np.random.default_rng(3)
+    for frac_valid in (0.2, 0.9):
+        valid = rng.uniform(size=300) < frac_valid
+        want = rng.uniform(size=300) < 0.5
+        pj = JG._allocate_slots(jnp.asarray(valid), jnp.asarray(want), 300)
+        pt = TG._allocate_slots(t_(valid), t_(want))
+        np.testing.assert_array_equal(np_(pt.slots), np.asarray(pj.slots))
+        assert int(pt.n_dropped) == int(pj.n_dropped)
+    assert int(pt.n_dropped) > 0
+
+
+@pytest.mark.parametrize("capacity", [512, 256])
+def test_increase_pcd_matches(capacity):
+    """A padded ingest bucket (point_valid masks the tail, max_log_scale
+    caps some rows); at capacity 256 the batch overflows the free slots
+    and the dropped count must agree."""
+    pts, cols, rng = _lattice(200, 1)
+    js, ts = _both_states(JG.create_from_pcd(pts, cols, capacity=capacity))
+    new, ncols, _ = _lattice(128, 2)
+    pv = np.arange(128) < 100
+    smax = np.where(rng.uniform(size=128) < 0.5, -1.5, np.inf) \
+        .astype(np.float32)
+    js = JG.increase_pcd(js, jnp.asarray(new), jnp.asarray(ncols),
+                         jnp.int32(7), point_valid=jnp.asarray(pv),
+                         max_log_scale=jnp.asarray(smax))
+    out = TG.increase_pcd(ts, t_(new), t_(ncols), 7, point_valid=t_(pv),
+                          max_log_scale=t_(smax))
+    _assert_states(out, js)
+    assert int(out.overflow_dropped) == (44 if capacity == 256 else 0)
+    assert int(ts.num_valid()) == 200      # the input state is kept
+
+
+def test_grow_capacity_matches():
+    pts, cols, _ = _lattice(100, 4)
+    js, ts = _both_states(JG.create_from_pcd(pts, cols, capacity=128))
+    out = TG.grow_capacity(ts, 512)
+    _assert_states(out, JG.grow_capacity(js, 512))
+    assert out.capacity == 512 and int(out.num_valid()) == 100
+
+
+def _densify_state(capacity, seed=5):
+    """A JAX store with clone, split and prune candidates."""
+    pts, cols, rng = _lattice(200, seed)
+    js = JG.create_from_pcd(pts, cols, capacity=capacity)
+    op = rng.uniform(0.005, 0.99, size=(capacity, 1)).astype(np.float32)
+    sc = np.asarray(js.params.scaling) + rng.uniform(
+        -0.5, 0.8, size=(capacity, 3)).astype(np.float32)
+    stats = JG.DensifyStats(
+        grad_accum=jnp.asarray(rng.uniform(0, 3e-3, capacity), jnp.float32),
+        denom=jnp.asarray(rng.integers(0, 10, capacity), jnp.float32),
+        max_radii2d=jnp.asarray(rng.uniform(0, 30, capacity), jnp.float32))
+    return js.replace(params=js.params.replace(
+        opacity=jnp.asarray(np.log(op / (1 - op))),
+        scaling=jnp.asarray(sc)), stats=stats)
+
+
+@pytest.mark.parametrize("capacity,max_screen", [(1024, None), (1024, 20.0),
+                                                 (256, 20.0)])
+def test_densify_and_prune_matches(capacity, max_screen):
+    """Clone, split (fed JAX's own split noise) and prune; at capacity 256
+    the children overflow the free slots."""
+    import jax
+    js, ts = _both_states(_densify_state(capacity))
+    key = jax.random.key(11)
+    # the draws densify_and_prune makes from `key` (gaussians.py:469-471)
+    noise, k = [], key
+    for _ in range(2):
+        k, sub = jax.random.split(k)
+        noise.append(np.array(jax.random.normal(sub, (capacity, 3))))
+    args = (2e-4, 0.02, 3.0, max_screen, 0.01)
+    jo = JG.densify_and_prune(js, key, *args)
+    to = TG.densify_and_prune(ts, None, *args, noise=noise)
+    _assert_states(to, jo)
+    n_before, n_after = int(js.num_valid()), int(jo.num_valid())
+    assert n_after != n_before
+    assert (int(to.overflow_dropped) > 0) == (capacity == 256)
+
+
+def test_densify_and_prune_draws_from_generator():
+    """Without `noise` the split draws come from the generator: one seed,
+    one result."""
+    _, ts = _both_states(_densify_state(1024))
+    outs = [TG.densify_and_prune(
+        ts, torch.Generator().manual_seed(0), 2e-4, 0.02, 3.0, None, 0.01)
+        for _ in range(2)]
+    assert torch.equal(outs[0].params.xyz, outs[1].params.xyz)
+    assert torch.equal(outs[0].valid, outs[1].valid)
+
+
+def test_reset_opacity_matches():
+    js, ts = _both_states(_densify_state(256))
+    _assert_states(TG.reset_opacity(ts), JG.reset_opacity(js))
+
+
+def _rotation(rng):
+    q = rng.normal(size=4)
+    q /= np.linalg.norm(q)
+    return np.asarray(JG.quat_to_rotmat(jnp.asarray(q, jnp.float32)))
+
+
+def test_loop_closure_surgery_matches():
+    """rotmat_to_quat, apply_scaled_transformation, mark_visible and
+    transform_visible_points against JAX."""
+    js, ts = _both_states(_densify_state(256))
+    rng = np.random.default_rng(8)
+    Rs = np.stack([_rotation(rng) for _ in range(16)]).astype(np.float32)
+    assert_close(TG.rotmat_to_quat(t_(Rs)), JG.rotmat_to_quat(
+        jnp.asarray(Rs)), SURGERY_ATOL, 0)
+    R, t = Rs[0], rng.normal(size=3).astype(np.float32)
+    _assert_states(
+        TG.apply_scaled_transformation(ts, 1.3, t_(R), t_(t)),
+        JG.apply_scaled_transformation(js, 1.3, jnp.asarray(R),
+                                       jnp.asarray(t)))
+    w2v = np.eye(4, dtype=np.float32)
+    w2v[:3, :3], w2v[2, 3] = Rs[1], 0.5
+    exist = rng.integers(0, 60, size=256).astype(np.int32)
+    js = js.replace(exist_since=jnp.asarray(exist))
+    ts.exist_since = t_(exist)
+    nt = rng.uniform(size=256) < 0.8
+    jo, jm, jn = JG.transform_visible_points(
+        js, jnp.asarray(nt), jnp.asarray(R), jnp.asarray(t),
+        jnp.asarray(w2v), 30, 30, 0.9)
+    to, tm, tn = TG.transform_visible_points(
+        ts, t_(nt), t_(R), t_(t), t_(w2v), 30, 30, 0.9)
+    _assert_states(to, jo)
+    np.testing.assert_array_equal(np_(tm), np.asarray(jm))
+    assert int(tn) == int(jn) > 0

@@ -1,16 +1,19 @@
-"""The compositing kernels' wrappers, without JAX, so this file also runs
-on a machine with a card (the JAX conftest skipped):
+"""The compositing and sort kernels' wrappers, without JAX, so this file
+also runs on a machine with a card (the JAX conftest skipped):
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 
 * anywhere: the wrappers run their plain versions for CPU tensors and
-  count no launch; the build raises without nvcc;
-* on a card (marker `cuda`, skipped without one): each kernel against its
-  plain version on the pair arrays of a small seeded scene, in float32
-  and bfloat16 features. Tolerances: acc and t_final atol 2e-4 / rtol
-  1e-3 (the JAX suite's forward tolerance, LF channels' atol for all),
-  kfin equal; dgeo and dfeats atol 2e-4 / rtol 2e-2 (its gradient
-  tolerance), with cotangents sized like a mean loss's.
+  count no launch; the build raises without nvcc; the sort wrappers
+  refuse what the kernel does not take;
+* on a card (marker `cuda`, skipped without one): each compositing kernel
+  against its plain version on the pair arrays of a small seeded scene,
+  in float32 and bfloat16 features. Tolerances: acc and t_final atol 2e-4
+  / rtol 1e-3 (the JAX suite's forward tolerance, LF channels' atol for
+  all), kfin equal; dgeo and dfeats atol 2e-4 / rtol 2e-2 (its gradient
+  tolerance), with cotangents sized like a mean loss's. The sort kernels
+  against their plain versions bit for bit, on keys with ties, on
+  all-invalid depths, and below, at and above one block's tile.
 """
 import numpy as np
 import pytest
@@ -20,6 +23,7 @@ from legslam_torch.config import RasterizeConfig
 from legslam_torch.models import gaussians as G
 from legslam_torch.ops.cuda import composite as CF
 from legslam_torch.ops.cuda import composite_bwd as CB
+from legslam_torch.ops.cuda import sort as CS
 from legslam_torch.ops.projection import preprocess
 from legslam_torch.ops.rasterize import compute_binning
 from legslam_torch.utils.camera import CameraView
@@ -129,3 +133,92 @@ def test_kernels_match_plain_on_card(mm_dtype, with_lf):
     dgeo_p, dfe_p = CB.composite_backward_plain(*ba)
     _assert_close(dgeo, dgeo_p, 2e-4, 2e-2, "dgeo")
     _assert_close(dfe, dfe_p, 2e-4, 2e-2, "dfeats")
+
+
+# --- the sort kernels (bit-exact: a sort has one right answer) -----------
+
+def _sort_inputs(n, seed, device):
+    """Keys with many ties (drawn from n // 8 values, INT32_MAX sentinels
+    among them) and values with ties of their own."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(-(1 << 20), 1 << 20, size=n // 8)[
+        rng.integers(0, n // 8, size=n)].astype(np.int32)
+    keys[rng.uniform(size=n) < 0.1] = CS.INT32_MAX
+    vals = rng.integers(0, 16, size=n).astype(np.int32)
+    return (torch.as_tensor(keys, device=device),
+            torch.as_tensor(vals, device=device))
+
+
+def test_sort_wrappers_run_plain_versions_on_cpu():
+    keys, vals = _sort_inputs(1 << 10, 0, "cpu")
+    launches = (CS.sort_keys.launches, CS.sort_kv.launches)
+    assert torch.equal(CS.sort_keys(keys), torch.sort(keys).values)
+    ok, ov = CS.sort_kv(keys, vals)
+    # lexicographic (key, value) order
+    want = sorted(zip(keys.tolist(), vals.tolist()))
+    assert list(zip(ok.tolist(), ov.tolist())) == want
+    depth = torch.rand(300)
+    order = CS.argsort_f32(depth, depth > 0.3)
+    assert order.shape == (512,)
+    nv = int((depth > 0.3).sum())
+    assert torch.equal(depth[order[:nv].long()],
+                       torch.sort(depth[depth > 0.3]).values)
+    assert (CS.sort_keys.launches, CS.sort_kv.launches) == launches
+
+
+@pytest.mark.parametrize("bad", ["length", "dtype", "stride", "values"])
+def test_sort_wrappers_refuse_bad_input(bad):
+    keys = torch.arange(16, dtype=torch.int32)
+    vals = keys.clone()
+    if bad == "length":
+        keys, vals = keys[:12], vals[:12]
+    elif bad == "dtype":
+        keys = keys.long()
+    elif bad == "stride":
+        keys = torch.arange(32, dtype=torch.int32)[::2]
+    else:
+        vals = vals[:8]
+    with pytest.raises((TypeError, ValueError)):
+        CS.sort_kv(keys, vals)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1 << 8, 1 << 12, 1 << 13, 1 << 16])
+def test_sort_kernels_match_plain_on_card(n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    keys, vals = _sort_inputs(n, n, "cuda")
+    launches = (CS.sort_keys.launches, CS.sort_kv.launches)
+    out = CS.sort_keys(keys)
+    ok, ov = CS.sort_kv(keys, vals)
+    torch.cuda.synchronize()
+    assert (CS.sort_keys.launches, CS.sort_kv.launches) == \
+        (launches[0] + 1, launches[1] + 1)
+    assert torch.equal(out, CS.sort_keys_plain(keys))
+    pk, pv = CS.sort_kv_plain(keys, vals)
+    assert torch.equal(ok, pk) and torch.equal(ov, pv)
+    # with iota values the kv order is the stable order
+    iota = torch.arange(n, dtype=torch.int32, device="cuda")
+    _, order = CS.sort_kv(keys, iota)
+    assert torch.equal(order.long(), torch.sort(keys, stable=True).indices)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ties", "all_invalid", "distinct"])
+def test_argsort_kernel_matches_plain_on_card(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    n = 5000
+    depth = torch.rand(n, generator=g, device="cuda") * 8.0
+    if case == "ties":
+        depth = torch.round(depth * 4.0) / 4.0
+    valid = torch.rand(n, generator=g, device="cuda") > (
+        1.1 if case == "all_invalid" else 0.2)
+    order = CS.argsort_f32(depth, valid)
+    torch.cuda.synchronize()
+    bits = CS.argsort_bits(depth, valid)
+    iota = torch.arange(bits.shape[0], dtype=torch.int32, device="cuda")
+    assert torch.equal(order, CS.sort_kv_plain(bits, iota)[1])
+    key = torch.where(valid, depth, float("inf"))
+    assert torch.equal(order[:n].long(), torch.argsort(key, stable=True))

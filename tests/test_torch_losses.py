@@ -50,6 +50,14 @@ def test_simple_losses_match(images):
         assert_close(tv, jv, 1e-6, 1e-5, name)
 
 
+def test_psnr_gaussian_splatting_matches(images):
+    """The per-channel PSNR of record_keyframe_metrics (loss_utils.h:46)."""
+    a, b = images["color"], images["gt_color"]
+    assert_close(TL.psnr_gaussian_splatting(t_(a), t_(b)),
+                 JL.psnr_gaussian_splatting(jnp.asarray(a), jnp.asarray(b)),
+                 1e-6, 1e-5, "psnr_gaussian_splatting")
+
+
 @pytest.mark.parametrize("which", ["ssim", "lf_cos", "mapping_loss"])
 def test_loss_values_and_grads_match(images, which):
     im = images
