@@ -21,12 +21,14 @@ Phases (each prints one or more lines; any failure exits non-zero):
      over those 24 steps, then each kernel against its plain version at
      the main path's shapes, with CUDA-event times and the bound; the SM
      clock, power draw and temperature are sampled beside the step and
-     the kernel timings; then the sort kernels at the main path's shapes:
-     the scene's [2^23] pair-key buffer through sort_keys and argsort_f32
-     of its 2^18 depths and mask (both as bin_gaussians hands them over
-     with cuda_sort), and 2^23 random keys with many duplicates, each
-     against its plain version bit for bit, with CUDA-event times of the
-     kernel, the plain version and torch.sort, and the bound;
+     the kernel timings; then the radix sort kernels at the main path's
+     shapes, as bin_gaussians launches them with cuda_sort: the scene's
+     [2^23] pair-key buffer through sort_keys over the sentinel's 27 bits
+     and argsort_f32's mode on its 2^18 depths and mask; and 2^23 random
+     keys with many duplicates through sort_keys and the lexicographic
+     sort_kv; each against its plain version bit for bit, with CUDA-event
+     times of the kernel, the plain version and torch.sort (in turns:
+     torch.sort, kernel, kernel, torch.sort), and the bound;
   5. the online mapper at full width: a 40-frame 1200x680 sequence of
      the synthetic room of 200k gaussians rendered on the card, a
      trajectory frontend (every 4th frame a keyframe) with a seeded
@@ -47,7 +49,8 @@ Phases (each prints one or more lines; any failure exits non-zero):
 
 Each kernel's `launches` is its count over the path that runs it: the
 compositing kernels' over phase 4's 24 steps, the sort kernels' over
-phase 5's training loop (phase 4 keeps cuda_sort off, its default).
+phase 5's training loop (phase 4 runs cuda_sort at its default and
+counts their launches too).
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result. Imports nothing of JAX.
 """
@@ -195,12 +198,12 @@ def make_scene(dev, width, height, n_points, capacity, seed=0):
     return st, view, gt
 
 
-def make_cfg(max_pairs, mm_dtype, backend="cuda", cuda_sort=False):
+def make_cfg(max_pairs, mm_dtype, backend="cuda"):
     from legslam_torch.config import RasterizeConfig
     return RasterizeConfig(tile_h=16, tile_w=128, max_span_x=4, max_span_y=8,
                            chunk=256, tile_batch=16, backend=backend,
                            max_pairs=max_pairs, mm_dtype=mm_dtype,
-                           power_mode="sep3", cuda_sort=cuda_sort)
+                           power_mode="sep3")
 
 
 class StepLoop:
@@ -493,25 +496,22 @@ def sync(dev):
 
 # --- the sort kernels --------------------------------------------------------
 
-SORT_TILE_LOG2 = 12   # csrc/sort.cu TILE = 4096
+def sort_launches(key_bits: int, with_values: bool = False) -> str:
+    """CUDA kernel launches of one call of csrc/sort.cu's radix sort: one
+    histogram, then one per digit pass, with the plan."""
+    from legslam_torch.ops.cuda import sort as cs
+    bits, kp, vp = cs.radix_plan(key_bits, with_values)
+    return (f"{cs.launches_per_call(key_bits, with_values)} kernel launches "
+            f"a call (histogram + {kp + vp} passes of {bits}-bit digits)")
 
 
-def sort_launches(n: int) -> int:
-    """CUDA kernel launches of one sort of n keys in csrc/sort.cu: one
-    shared-memory pass up to merges of the tile, then for each larger merge
-    size 2^k, k - 12 global stages and one shared-memory pass for its tail,
-    1 + sum_{k=13..log2 n} (k - 11)."""
-    d = max(n.bit_length() - 1 - SORT_TILE_LOG2, 0)
-    return 1 + d * (d + 1) // 2 + d
-
-
-def sort_bound(n: int, with_values: bool) -> dict:
-    """Least time (ms) of a sort of n int32 keys (and values): each input
-    read once and each output written once over the HBM rate, against
-    n log2 n comparisons (what any comparison sort needs) at the CUDA-core
-    peak (the table has no integer rate; Hopper's int32 rate is half the
-    float32 one, which would not change which bound binds)."""
-    nbytes = (16 if with_values else 8) * n
+def sort_bound(n: int, nbytes: int) -> dict:
+    """Least time (ms) of a sort of n int32 keys that must move `nbytes`
+    (each input read once, each output written once) over the HBM rate,
+    against n log2 n operations (a comparison sort's count; a radix sort
+    does fewer, and bytes bind either way) at the CUDA-core peak (the
+    table has no integer rate; Hopper's int32 rate is half the float32
+    one, which would not change which bound binds)."""
     ops = n * max(int(math.log2(n)), 1)
     tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_OPS * 1e3
     return dict(bound_ms=max(tb, to),
@@ -523,38 +523,50 @@ def max_int_err(a, b) -> float:
     return float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
 
 
+def turns_ms(kernel, library, reps):
+    """CUDA-event ms of two functions timed in turns (library, kernel,
+    kernel, library), each the mean of its two runs."""
+    lib = [event_ms(library, reps)]
+    ker = [event_ms(kernel, reps), event_ms(kernel, reps)]
+    lib.append(event_ms(library, reps))
+    return statistics.mean(ker), statistics.mean(lib)
+
+
 def check_sorts(st, view, card, fails):
     """The sort kernels at the main path's shapes against their plain
     versions, bit for bit (a sort has one right answer), and their times
     beside torch.sort's. Returns (max errors, times, bounds)."""
-    from legslam_torch.ops.binning import pair_keys
+    from legslam_torch.ops.binning import _tile_grid, pair_keys
     from legslam_torch.ops.cuda import sort as cs
     from legslam_torch.ops.projection import preprocess
     from legslam_torch.utils.transforms import normalize_quat
     dev = st.valid.device
     # the inputs bin_gaussians hands the kernels with cuda_sort: the
-    # preprocessed depths and mask, and the padded pair-key buffer
+    # preprocessed depths and mask, and the pair-key buffer as it lies
     focal_x = view.width / (2.0 * view.tan_fovx)
     focal_y = view.height / (2.0 * view.tan_fovy)
     pre = preprocess(st.params.xyz, st.scales(),
                      normalize_quat(st.params.rotation), st.valid,
                      view.world_view, view.full_proj, view.width, view.height,
                      focal_x, focal_y, view.tan_fovx, view.tan_fovy, 1.0)
-    _, key, _, _ = pair_keys(pre, view.width, view.height,
-                             make_cfg(1 << 20, "bfloat16"),
-                             opacity=st.opacities())
-    keys = cs.pad_keys(key)
+    cfg = make_cfg(1 << 20, "bfloat16")
+    _, keys, _, _ = pair_keys(pre, view.width, view.height, cfg,
+                              opacity=st.opacities())
     depth, mask = pre.depth, pre.mask
+    P = depth.shape[0]
+    ntx, nty = _tile_grid(view.width, view.height, cfg)
+    sentinel = ntx * nty * P
+    key_bits = sentinel.bit_length()
     bits = cs.argsort_bits(depth, mask)
     iota = torch.arange(bits.shape[0], dtype=torch.int32, device=dev)
     g = torch.Generator(device=dev).manual_seed(0)
     n = keys.shape[0]
-    rkeys = torch.randint(0, 1 << 16, (n,), generator=g, device=dev,
-                          dtype=torch.int32)
+    rkeys = torch.randint(-(1 << 15), 1 << 15, (n,), generator=g,
+                          device=dev, dtype=torch.int32)
     rvals = torch.randint(0, 16, (n,), generator=g, device=dev,
                           dtype=torch.int32)
 
-    out = cs.sort_keys(keys)
+    out = cs.sort_keys(keys, key_bits)
     order = cs.argsort_f32(depth, mask)
     r_out = cs.sort_keys(rkeys)
     rk, rv = cs.sort_kv(rkeys, rvals)
@@ -565,7 +577,6 @@ def check_sorts(st, view, card, fails):
     rk_p, rv_p = cs.sort_kv_plain(rkeys, rvals)
     stable = torch.argsort(torch.where(mask, depth, float("inf")),
                            stable=True)
-    P = depth.shape[0]
     ok = dict(
         keys=torch.equal(out, plain), order=torch.equal(order, plain_order),
         stable=torch.equal(order[:P].long(), stable),
@@ -579,38 +590,48 @@ def check_sorts(st, view, card, fails):
         if not good:
             fails.append(f"sort kernels: {what} differs from the plain "
                          "version")
+    times = {}
     with ClockSampler() as clk:
-        times = dict(
-            sort_keys=event_ms(lambda: cs.sort_keys(keys), 20),
-            sort_keys_lib=event_ms(lambda: torch.sort(keys), 20),
-            sort_kv=event_ms(lambda: cs.sort_kv(bits, iota), 50),
-            sort_kv_lib=event_ms(lambda: torch.sort(bits, stable=True), 50))
+        times["sort_keys"], times["sort_keys_lib"] = turns_ms(
+            lambda: cs.sort_keys(keys, key_bits), lambda: torch.sort(keys),
+            20)
+        times["sort_kv"], times["sort_kv_lib"] = turns_ms(
+            lambda: cs.argsort_order(bits),
+            lambda: torch.sort(bits, stable=True), 50)
+        times["random_kv"] = event_ms(lambda: cs.sort_kv(rkeys, rvals), 20)
     times.update(
         sort_keys_plain=event_ms(lambda: cs.sort_keys_plain(keys), 20),
-        sort_kv_plain=event_ms(lambda: cs.sort_kv_plain(bits, iota), 50))
-    bnd = dict(sort_keys=sort_bound(n, False),
-               sort_kv=sort_bound(bits.shape[0], True))
-    sentinel_share = float((keys == keys.max()).float().mean())
+        sort_kv_plain=event_ms(lambda: cs.sort_kv_plain(bits, iota), 50),
+        random_kv_plain=event_ms(lambda: cs.sort_kv_plain(rkeys, rvals), 5))
+    # keys: read and written; argsort: keys read, the order written; kv:
+    # keys and values read and written
+    m = bits.shape[0]
+    bnd = dict(sort_keys=sort_bound(n, 8 * n), sort_kv=sort_bound(m, 8 * m),
+               random_kv=sort_bound(n, 16 * n))
+    sentinel_share = float((keys == sentinel).float().mean())
     print(f"[sort] sort_keys of the {n} pair keys of the main path's binning "
-          f"({sentinel_share:.1%} sentinels): bit-exact {ok['keys']}, "
-          f"{sort_launches(n)} kernel launches a call; kernel "
-          f"{times['sort_keys']:.3f} ms, plain "
-          f"{times['sort_keys_plain']:.3f} ms, torch.sort "
-          f"{times['sort_keys_lib']:.3f} ms, bound "
+          f"({sentinel_share:.1%} sentinels), key_bits {key_bits}: bit-exact "
+          f"{ok['keys']}, {sort_launches(key_bits)}; kernel "
+          f"{times['sort_keys']:.4f} ms, plain "
+          f"{times['sort_keys_plain']:.4f} ms, torch.sort "
+          f"{times['sort_keys_lib']:.4f} ms, bound "
           f"{bnd['sort_keys']['bound_ms']:.4f} ms by "
           f"{bnd['sort_keys']['bound_by']} [{card}]")
     print(f"[sort] argsort_f32 of {P} depths ({int(mask.sum())} valid) "
-          f"through sort_kv at {bits.shape[0]}: bit-exact {ok['order']}, "
-          f"the stable order {ok['stable']}, "
-          f"{sort_launches(bits.shape[0])} kernel launches "
-          f"a call; kernel {times['sort_kv']:.3f} ms, plain "
-          f"{times['sort_kv_plain']:.3f} ms, torch.sort(stable=True) "
-          f"{times['sort_kv_lib']:.3f} ms, bound "
-          f"{bnd['sort_kv']['bound_ms']:.5f} ms by "
+          f"at {m}, sort_kv's argsort mode: bit-exact {ok['order']}, the "
+          f"stable order {ok['stable']}, "
+          f"{sort_launches(cs.ARGSORT_KEY_BITS)}; kernel "
+          f"{times['sort_kv']:.4f} ms, plain {times['sort_kv_plain']:.4f} "
+          f"ms, torch.sort(stable=True) {times['sort_kv_lib']:.4f} ms, "
+          f"bound {bnd['sort_kv']['bound_ms']:.5f} ms by "
           f"{bnd['sort_kv']['bound_by']} [{card}]")
-    print(f"[sort] {n} random keys from 65536 values, random values from "
-          f"16: sort_keys bit-exact {ok['random_keys']}, sort_kv bit-exact "
-          f"{ok['random_kv']} [{card}]")
+    print(f"[sort] {n} random keys from 65536 values in [-32768, 32768), "
+          f"random values from 16: sort_keys bit-exact {ok['random_keys']}; "
+          f"sort_kv (lexicographic, {sort_launches(32, True)}) bit-exact "
+          f"{ok['random_kv']}, kernel {times['random_kv']:.4f} ms, plain "
+          f"{times['random_kv_plain']:.4f} ms, bound "
+          f"{bnd['random_kv']['bound_ms']:.4f} ms by "
+          f"{bnd['random_kv']['bound_by']} [{card}]")
     print(f"[clocks] sort timing: {clk.summary()} [{card}]")
     return errs, times, bnd
 
@@ -798,7 +819,7 @@ def mapper_phase(dev, card, fails, out_dir):
     f32 = drive_mapper(dev, ds, frames, dataclasses.replace(
         cfg, mm_dtype="float32"), out_dir + "_f32")[0]
     ref, _, ref_ms, ref_losses, _ = drive_mapper(
-        dev, ds, frames, RasterizeConfig(backend="torch"),
+        dev, ds, frames, RasterizeConfig(backend="torch", cuda_sort=False),
         out_dir + "_torch", max_per_tile=1 << 16)
     psnr_f32, psnr_ref = keyframe_psnr(f32), keyframe_psnr(ref)
     secs["witness"] = time.perf_counter() - t0
@@ -869,7 +890,8 @@ def build_phase():
     for n in names:
         log = _build.log_path(n).read_text().splitlines()
         # ptxas reports per instantiation; show the main path's (72 ch)
-        # and the sort's four (keys / kv x local / global)
+        # and the sort's eight (keys / kv x histogram / onesweep of 4, 8
+        # and 16 elements a thread)
         for i, line in enumerate(log):
             if "Compiling entry function" not in line:
                 continue
@@ -879,10 +901,14 @@ def build_phase():
                 dtype = "bf16" if "bfloat16" in line else "f32"
                 print(f"[build] {n} <72, {dtype}>: {tail}")
             elif n == "sort":
-                kind = "local_stages" if "local_stages" in line \
-                    else "global_stage"
                 form = "kv" if "ILb1E" in line else "keys"
-                print(f"[build] sort {kind} <{form}>: {tail}")
+                if "histogram" in line:
+                    print(f"[build] sort histogram <{form}>: {tail}")
+                else:
+                    items = 16 if "Li16E" in line else \
+                        4 if "Li4E" in line else 8
+                    print(f"[build] sort onesweep <{form}, {items} a "
+                          f"thread>: {tail}")
 
 
 def main() -> int:
@@ -894,8 +920,10 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: legslam_torch not found ({e})", file=sys.stderr)
         return 2
+    from legslam_torch.config import RasterizeConfig
     from legslam_torch.ops.cuda import composite as cf
     from legslam_torch.ops.cuda import composite_bwd as cb
+    from legslam_torch.ops.cuda import sort as cs
 
     dev = torch.device("cuda")
     card = card_line()
@@ -927,8 +955,10 @@ def main() -> int:
     drv = StepLoop(st, view, gt, make_cfg(1 << 20, "bfloat16"))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cf.composite_forward.launches = 0
-    cb.composite_backward.launches = 0
+    main_kernels = dict(fwd=cf.composite_forward, bwd=cb.composite_backward,
+                        sort_keys=cs.sort_keys, sort_kv=cs.sort_kv)
+    for fn in main_kernels.values():
+        fn.launches = 0
     group_ms, losses = [], []
     with ClockSampler() as clk_main:
         for g in range(3):
@@ -937,9 +967,9 @@ def main() -> int:
             loss = float(aux.loss)      # synchronises
             group_ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(loss)
-    launches = dict(fwd=cf.composite_forward.launches,
-                    bwd=cb.composite_backward.launches)
+    launches = {k: fn.launches for k, fn in main_kernels.items()}
     steps = 3 * drv.refresh
+    cuda_sort = RasterizeConfig().cuda_sort
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     step_ms = statistics.median(group_ms[1:]) / drv.refresh
     print(f"[main] 1200x680, 200k gaussians / capacity 262144, bf16, "
@@ -947,7 +977,9 @@ def main() -> int:
           f"{[round(x, 6) for x in losses]}; num_rendered "
           f"{int(aux.num_rendered)} overflow_pairs {int(aux.overflow_pairs)}"
           f"; launches over {steps} steps fwd {launches['fwd']} bwd "
-          f"{launches['bwd']}; group ms {[round(x, 2) for x in group_ms]}; "
+          f"{launches['bwd']}, cuda_sort {cuda_sort}: sort_keys "
+          f"{launches['sort_keys']} sort_kv {launches['sort_kv']} "
+          f"(3 fresh binnings); group ms {[round(x, 2) for x in group_ms]}; "
           f"median ms/step of the timed groups {step_ms:.3f}; "
           f"max_memory_allocated {peak_gib:.2f} GiB [{card}]")
     print(f"[clocks] main path: {clk_main.summary()} [{card}]")
@@ -957,6 +989,10 @@ def main() -> int:
         if launches[k] != steps:
             fails.append(f"main: {k} kernel launched {launches[k]} times "
                          f"in {steps} steps")
+    for k in ("sort_keys", "sort_kv"):
+        if launches[k] != (3 if cuda_sort else 0):
+            fails.append(f"main: {k} launched {launches[k]} times for 3 "
+                         f"fresh binnings, cuda_sort {cuda_sort}")
 
     # the kernels at the main path's shapes: a reuse step's inputs
     fa, ba = capture_kernel_inputs(lambda: drv.step(drv.binning))

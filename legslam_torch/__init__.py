@@ -2,7 +2,7 @@
 
 The module layout mirrors legslam_tpu so each module's counterpart is easy
 to find. Plain tensor code is PyTorch; the forward and backward
-compositing kernels and the bitonic sort kernels of binning are
+compositing kernels and the radix sort kernels of binning are
 hand-written CUDA C++ for sm_90a (legslam_torch/csrc), built on first use
 by legslam_torch._build. Public entry points default to device="cuda".
 """

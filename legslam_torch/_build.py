@@ -88,9 +88,10 @@ def build(names) -> dict[str, float]:
     return seconds
 
 
-def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+def function(name: str, symbol: str, argtypes,
+             restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """The C function `symbol` of source `name`, building it if needed.
-    The functions return a cudaError_t (0 = success) as int."""
+    The kernels' functions return a cudaError_t (0 = success) as int."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -98,5 +99,5 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
             lib = _libs[name] = ctypes.CDLL(str(_target(name)))
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn

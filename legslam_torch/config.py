@@ -178,11 +178,12 @@ class RasterizeConfig:
     power_mode: str = "vpu"
     mm_dtype: str = "float32"
     # sort binning's depth order and pair keys with the hand-written
-    # bitonic sort kernels (ops/cuda/sort.py), the counterpart of
-    # legslam_tpu's pallas_sort; off by default, as there. Ties come out
-    # in the order of a stable sort, so the Binning is the same bit for
-    # bit either way.
-    cuda_sort: bool = False
+    # radix sort kernels (ops/cuda/sort.py), the counterpart of
+    # legslam_tpu's pallas_sort. On by default: on the H100 both beat
+    # torch.sort at the main path's shapes (PERF.md). Ties come out in
+    # the order of a stable sort, so the Binning is the same bit for bit
+    # either way.
+    cuda_sort: bool = True
 
     def __post_init__(self):
         if self.backend not in BACKENDS:

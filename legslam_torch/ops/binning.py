@@ -20,11 +20,11 @@ workarounds; here the full emission buffer is sorted once and the ids
 are looked up with one gather.
 
 With RasterizeConfig.cuda_sort, steps 1 and 3 run on the hand-written
-bitonic sort kernels (ops/cuda/sort.py; legslam_tpu/ops/binning.py:241-245
+radix sort kernels (ops/cuda/sort.py; legslam_tpu/ops/binning.py:241-245
 and :297-312 with pallas_sort): the depth order through argsort_f32, and
-the key buffer, padded to a power of two with INT32_MAX, through
-sort_keys. Both order ties as a stable sort does, so the Binning is the
-same bit for bit with the flag on or off.
+the key buffer as it lies through sort_keys, over the bits of the
+sentinel only (keys are in [0, sentinel]). Both order ties as a stable
+sort does, so the Binning is the same bit for bit with the flag on or off.
 """
 from __future__ import annotations
 
@@ -234,8 +234,8 @@ def bin_gaussians(pre: Preprocessed, width: int, height: int,
     order, key, num_valid, span_overflow = pair_keys(pre, width, height, cfg,
                                                      opacity)
     if cfg.cuda_sort:
-        from legslam_torch.ops.cuda.sort import pad_keys, sort_keys
-        key_sorted = sort_keys(pad_keys(key))[:key.shape[0]]
+        from legslam_torch.ops.cuda.sort import sort_keys
+        key_sorted = sort_keys(key, key_bits=sentinel.bit_length())
     else:
         key_sorted = torch.sort(key).values
     # the kernels only read the first max_pairs sorted entries

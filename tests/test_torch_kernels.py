@@ -5,15 +5,19 @@ also runs on a machine with a card (the JAX conftest skipped):
 
 * anywhere: the wrappers run their plain versions for CPU tensors and
   count no launch; the build raises without nvcc; the sort wrappers
-  refuse what the kernel does not take;
+  take any length, plan their digit passes, and refuse what the kernel
+  does not take;
 * on a card (marker `cuda`, skipped without one): each compositing kernel
   against its plain version on the pair arrays of a small seeded scene,
   in float32 and bfloat16 features. Tolerances: acc and t_final atol 2e-4
   / rtol 1e-3 (the JAX suite's forward tolerance, LF channels' atol for
   all), kfin equal; dgeo and dfeats atol 2e-4 / rtol 2e-2 (its gradient
-  tolerance), with cotangents sized like a mean loss's. The sort kernels
-  against their plain versions bit for bit, on keys with ties, on
-  all-invalid depths, and below, at and above one block's tile.
+  tolerance), with cotangents sized like a mean loss's. The radix sort
+  kernels against their plain versions bit for bit: keys with ties, all
+  equal, 97% one value, INT32_MIN / INT32_MAX, key_bits < 32,
+  all-invalid depths, lengths below, at and above one tile (2048
+  elements below 2^19, 4096 below 2^21, then 8192) and not powers of
+  two, and the argsort mode against torch.sort(stable).
 """
 import numpy as np
 import pytest
@@ -141,8 +145,9 @@ def _sort_inputs(n, seed, device):
     """Keys with many ties (drawn from n // 8 values, INT32_MAX sentinels
     among them) and values with ties of their own."""
     rng = np.random.default_rng(seed)
-    keys = rng.integers(-(1 << 20), 1 << 20, size=n // 8)[
-        rng.integers(0, n // 8, size=n)].astype(np.int32)
+    m = max(n // 8, 1)
+    keys = rng.integers(-(1 << 20), 1 << 20, size=m)[
+        rng.integers(0, m, size=n)].astype(np.int32)
     keys[rng.uniform(size=n) < 0.1] = CS.INT32_MAX
     vals = rng.integers(0, 16, size=n).astype(np.int32)
     return (torch.as_tensor(keys, device=device),
@@ -166,12 +171,48 @@ def test_sort_wrappers_run_plain_versions_on_cpu():
     assert (CS.sort_keys.launches, CS.sort_kv.launches) == launches
 
 
-@pytest.mark.parametrize("bad", ["length", "dtype", "stride", "values"])
+@pytest.mark.parametrize("n", [1, 37, 3000])
+def test_sort_wrappers_take_any_length_on_cpu(n):
+    """No power-of-two length is needed, and key_bits < 32 is a promise
+    about the keys that leaves the order as it is."""
+    keys, vals = _sort_inputs(n, n, "cpu")
+    small = keys & ((1 << 21) - 1)
+    assert torch.equal(CS.sort_keys(small, key_bits=21),
+                       torch.sort(small).values)
+    ok, ov = CS.sort_kv(keys, vals)
+    assert list(zip(ok.tolist(), ov.tolist())) == \
+        sorted(zip(keys.tolist(), vals.tolist()))
+    order = CS.argsort_order(keys & CS.INT32_MAX)
+    assert torch.equal(order.long(),
+                       torch.sort(keys & CS.INT32_MAX, stable=True).indices)
+
+
+@pytest.mark.parametrize("key_bits,with_values,plan", [
+    (27, False, (9, 3, 0)),    # the main path's pair keys
+    (24, False, (8, 3, 0)),    # the mapper's at its first rung
+    (31, False, (8, 4, 0)),    # argsort_f32
+    (32, False, (8, 4, 0)),
+    (32, True, (8, 4, 4)),     # sort_kv: the value's passes, then the key's
+    (1, False, (8, 1, 0)),
+])
+def test_radix_plan(key_bits, with_values, plan):
+    assert CS.radix_plan(key_bits, with_values) == plan
+    assert CS.launches_per_call(key_bits, with_values) == \
+        1 + plan[1] + plan[2]
+
+
+@pytest.mark.parametrize("bad", ["ndim", "dtype", "stride", "values",
+                                 "key_bits"])
 def test_sort_wrappers_refuse_bad_input(bad):
     keys = torch.arange(16, dtype=torch.int32)
     vals = keys.clone()
-    if bad == "length":
-        keys, vals = keys[:12], vals[:12]
+    if bad == "key_bits":
+        for key_bits in (0, 33):
+            with pytest.raises(ValueError):
+                CS.sort_keys(keys, key_bits=key_bits)
+        return
+    if bad == "ndim":
+        keys, vals = keys.reshape(4, 4), vals.reshape(4, 4)
     elif bad == "dtype":
         keys = keys.long()
     elif bad == "stride":
@@ -183,7 +224,9 @@ def test_sort_wrappers_refuse_bad_input(bad):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1 << 8, 1 << 12, 1 << 13, 1 << 16])
+@pytest.mark.parametrize("n", [1, 37, 3000, 1 << 8, 1 << 12, 1 << 13,
+                               1 << 16, (1 << 16) + 5, (1 << 19) + 7,
+                               (1 << 21) + 3])
 def test_sort_kernels_match_plain_on_card(n):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
@@ -201,6 +244,59 @@ def test_sort_kernels_match_plain_on_card(n):
     iota = torch.arange(n, dtype=torch.int32, device="cuda")
     _, order = CS.sort_kv(keys, iota)
     assert torch.equal(order.long(), torch.sort(keys, stable=True).indices)
+    # and so is the argsort mode's (the key's passes only)
+    bits = keys & CS.INT32_MAX
+    assert torch.equal(CS.argsort_order(bits).long(),
+                       torch.sort(bits, stable=True).indices)
+
+
+def _edge_keys(case, n, rng):
+    """(keys, key_bits) where an LSD radix sort can go wrong."""
+    if case == "extremes":
+        k = rng.integers(-2 ** 31, 2 ** 31, size=n)
+        k[rng.uniform(size=n) < 0.05] = -2 ** 31
+        k[rng.uniform(size=n) < 0.05] = 2 ** 31 - 1
+        k[::97], k[1::97] = 0, -1
+        return k, 32
+    if case == "all_equal":
+        return np.full(n, -12345), 32
+    if case == "skew97":        # binning's buffer: ~97% one sentinel
+        k = rng.integers(0, 430 << 18, size=n)
+        k[rng.uniform(size=n) < 0.97] = 430 << 18
+        return k, (430 << 18).bit_length()
+    if case == "sentinel_runs":  # its layout: pairs first, then long runs
+        k = np.full(n, 430 << 18)  # of the sentinel with a few pairs
+        k[:n // 3] = rng.integers(0, 430 << 18, size=n // 3)
+        few = rng.integers(n - 1000, n, size=3)    # whole tiles of one
+        k[few] = rng.integers(0, 430 << 18, size=3)  # digit before them
+        return k, (430 << 18).bit_length()
+    bits = int(case.split("_")[-1])   # key_bits_<b>
+    return rng.integers(0, 1 << bits, size=n), bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["extremes", "all_equal", "skew97",
+                                  "sentinel_runs", "key_bits_5",
+                                  "key_bits_13", "key_bits_17",
+                                  "key_bits_24"])
+def test_radix_sort_edge_cases_on_card(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    rng = np.random.default_rng(11)
+    n = 3 * 4096 + 77               # six tiles and a ragged one
+    k, key_bits = _edge_keys(case, n, rng)
+    keys = torch.as_tensor(k.astype(np.int32), device="cuda")
+    vals = torch.as_tensor(rng.integers(-3, 3, size=n).astype(np.int32),
+                           device="cuda")
+    out = CS.sort_keys(keys, key_bits=key_bits)
+    ok, ov = CS.sort_kv(keys, vals)
+    bits = keys & CS.INT32_MAX
+    order = CS.argsort_order(bits)
+    torch.cuda.synchronize()
+    assert torch.equal(out, CS.sort_keys_plain(keys))
+    pk, pv = CS.sort_kv_plain(keys, vals)
+    assert torch.equal(ok, pk) and torch.equal(ov, pv)
+    assert torch.equal(order.long(), torch.sort(bits, stable=True).indices)
 
 
 @pytest.mark.cuda
