@@ -20,12 +20,14 @@ enum { kGeoX = 0, kGeoY, kGeoA, kGeoB, kGeoC, kGeoOp };
 constexpr int kThreads = 256;
 
 // resident blocks per SM the kernels are compiled for: caps a thread at
-// 65536 / (2 * 256) = 128 registers. Left free, ptxas gave the backward
-// 168, one block per SM, and twice the time.
+// 65536 / (2 * 256) = 128 registers, enough for a pixel's 72 accumulators
+// (forward) or gout row (backward) in registers. The backward's shared
+// memory (113,888 bytes a block at 72 channels) is sized to keep two
+// blocks on an SM as well.
 constexpr int kMinBlocks = 2;
 
 // returned for a channel width the kernels are not compiled for, and for
-// a tile height that does not divide kThreads (the forward's stripes)
+// a tile height that does not divide kThreads (the stripes)
 constexpr int kUnsupportedWidth = -1;
 constexpr int kUnsupportedTile = -2;
 
@@ -35,10 +37,9 @@ struct TilePixel {
   bool live;     // inside the tile
 };
 
-// Two ways to cut a tile into blocks of kThreads pixels, measured on the
-// main path (PERF.md): the forward is faster on square blocks, all rows of
-// a stripe of kThreads / tile_h columns (16x16 of a 16x128 tile); the
-// backward on runs of kThreads consecutive pixels (2 rows of 128).
+// A tile is cut into blocks of kThreads pixels, all rows of a stripe of
+// kThreads / tile_h columns (16x16 of a 16x128 tile), measured faster on
+// the main path (PERF.md) than runs of 2 rows for both kernels.
 __device__ __forceinline__ TilePixel stripe_pixel(int bx, int tid,
                                                   int tile_w, int tile_h) {
   const int cols = kThreads / tile_h;
@@ -50,24 +51,10 @@ __device__ __forceinline__ TilePixel stripe_pixel(int bx, int tid,
   return p;
 }
 
-__device__ __forceinline__ TilePixel run_pixel(int bx, int tid, int tile_w,
-                                               int tile_h) {
-  TilePixel p;
-  p.index = bx * kThreads + tid;
-  p.row = p.index / tile_w;
-  p.col = p.index % tile_w;
-  p.live = p.index < tile_w * tile_h;
-  return p;
-}
-
-// launch grids (pixel blocks of a tile x tiles) of the two cuts
+// launch grid: pixel blocks of a tile x tiles
 inline dim3 stripe_grid(int ntiles, int tile_w, int tile_h) {
   const int cols = kThreads / tile_h;
   return dim3((tile_w + cols - 1) / cols, ntiles);
-}
-
-inline dim3 run_grid(int ntiles, int tile_w, int tile_h) {
-  return dim3((tile_w * tile_h + kThreads - 1) / kThreads, ntiles);
 }
 
 __device__ __forceinline__ float load_feat(const float* p) { return __ldg(p); }

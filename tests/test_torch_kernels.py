@@ -139,6 +139,99 @@ def test_kernels_match_plain_on_card(mm_dtype, with_lf):
     _assert_close(dfe, dfe_p, 2e-4, 2e-2, "dfeats")
 
 
+# --- the backward kernel's edges -------------------------------------------
+
+def _edge_pairs(device, mm_dtype, nch):
+    """Backward arguments of hand-placed pairs on a 160x48 image (tiles
+    16x128: 2 columns, the second ragged, x 128..255 past the image's
+    160, and 3 rows), and the pair rows whose gradient must be exactly 0:
+      tile 0: 87 pairs (5 batches of 16 and a ragged 7), among them one
+        far outside the tile (composited by no pixel) and one 0.7 px
+        wide on rows 0-1 (composited in the first block of 256 pixels
+        only);
+      tile 1: 40 pairs around the image's right edge;
+      tiles 2 and 5: no pairs;
+      tile 3: 20 pairs of opacity 0.93 as wide as the tile: every pixel
+        terminates on the 4th pair, mid-batch, so pairs 3.. get nothing;
+      tile 4: 16 pairs, one whole batch."""
+    rng = np.random.default_rng(7)
+    tile_w, tile_h, ntx = 128, 16, 2
+
+    def pairs(n, x0, x1, y0, y1, sigma, op):
+        s = rng.uniform(*sigma, size=n)
+        rho = rng.uniform(-0.3, 0.3, size=n)
+        geo = np.zeros((n, 8), np.float32)
+        geo[:, 0] = rng.uniform(x0, x1, size=n)
+        geo[:, 1] = rng.uniform(y0, y1, size=n)
+        geo[:, 2] = 1.0 / s ** 2
+        geo[:, 3] = rho / s ** 2
+        geo[:, 4] = 1.0 / s ** 2
+        geo[:, 5] = rng.uniform(*op, size=n)
+        return geo
+
+    t0 = pairs(87, -10, 138, -4, 20, (1.5, 20.0), (0.05, 0.6))
+    t0[40, :6] = (-500.0, -500.0, 0.5, 0.0, 0.5, 0.9)   # no pixel
+    t0[41, :6] = (37.0, 0.5, 2.0, 0.0, 2.0, 0.9)        # first block only
+    t1 = pairs(40, 120, 170, -2, 18, (1.0, 12.0), (0.1, 0.8))
+    t3 = pairs(20, 180, 200, 20, 28, (1.0, 1.0), (0.93, 0.93))
+    t3[:, 2:5] = (1e-6, 0.0, 1e-6)
+    t4 = pairs(16, 0, 128, 32, 48, (2.0, 8.0), (0.2, 0.7))
+    geo = np.concatenate([t0, t1, t3, t4])
+    counts = [87, 40, 0, 20, 16, 0]
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    zero_rows = [40] + [87 + 40 + i for i in range(3, 20)]
+    n = geo.shape[0]
+    feats = rng.normal(size=(n, nch)).astype(np.float32)
+    start = torch.as_tensor(starts.astype(np.int32), device=device)
+    count = torch.as_tensor(np.asarray(counts, np.int32), device=device)
+    geo_t = torch.as_tensor(geo, device=device)
+    feats_t = torch.as_tensor(feats, device=device).to(
+        torch.bfloat16 if mm_dtype == "bfloat16" else torch.float32)
+    fa = (start, count, geo_t, feats_t, tile_w, tile_h, ntx, CHUNK)
+    acc, tfin, _ = CF.composite_forward_plain(*fa)
+    ntiles, npix = len(counts), tile_w * tile_h
+    gout = torch.as_tensor(rng.normal(size=(ntiles, npix, nch)).astype(
+        np.float32), device=device) / W
+    gt = torch.as_tensor(rng.normal(size=(ntiles, npix)).astype(np.float32),
+                         device=device) / W
+    return fa[:4] + (gout, gt, tfin, acc) + fa[4:], zero_rows
+
+
+@pytest.mark.parametrize("nch", [72, 8])
+def test_edge_pairs_plain_gradients_on_cpu(nch):
+    """The edge scene as the plain version sees it: exactly 0 on the pairs
+    no pixel composites, a gradient on (nearly) all others."""
+    ba, zero_rows = _edge_pairs("cpu", "float32", nch)
+    dgeo, dfe = CB.composite_backward(*ba)
+    live = torch.ones(dgeo.shape[0], dtype=torch.bool)
+    live[zero_rows] = False
+    assert torch.all(dgeo[~live] == 0) and torch.all(dfe[~live] == 0)
+    assert float((dgeo[live].abs().amax(1) > 0).float().mean()) > 0.9
+    assert float((dfe[live].abs().amax(1) > 0).float().mean()) > 0.9
+    # the opaque tile ends dark: three pairs composited everywhere
+    assert float(ba[6][3].max()) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nch", [72, 8])
+@pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16"])
+def test_backward_kernel_edges_on_card(mm_dtype, nch):
+    """The backward kernel against its plain version on the edge scene
+    (_edge_pairs) at the gradient tolerance, atol 2e-4 / rtol 2e-2, and
+    exactly 0 where no pixel composites a pair."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    ba, zero_rows = _edge_pairs("cuda", mm_dtype, nch)
+    launches = CB.composite_backward.launches
+    dgeo, dfe = CB.composite_backward(*ba)
+    torch.cuda.synchronize()
+    assert CB.composite_backward.launches == launches + 1
+    dgeo_p, dfe_p = CB.composite_backward_plain(*ba)
+    _assert_close(dgeo, dgeo_p, 2e-4, 2e-2, "dgeo")
+    _assert_close(dfe, dfe_p, 2e-4, 2e-2, "dfeats")
+    assert torch.all(dgeo[zero_rows] == 0) and torch.all(dfe[zero_rows] == 0)
+
+
 # --- the sort kernels (bit-exact: a sort has one right answer) -----------
 
 def _sort_inputs(n, seed, device):
