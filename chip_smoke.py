@@ -20,7 +20,8 @@ Phases (each prints one or more lines; any failure exits non-zero):
      group and 2 timed groups of 8 steps, with each kernel's launch count
      over those 24 steps, then each kernel against its plain version on
      the first step's inputs (the initial store, the same in every run),
-     and CUDA-event times on a reuse step's inputs, with the bound; the SM
+     with a digest of the forward's t_final and kfin there, and CUDA-event
+     times on a reuse step's inputs, with the bound; the SM
      clock, power draw and temperature are sampled beside the step and
      the kernel timings; then the radix sort kernels at the main path's
      shapes, as bin_gaussians launches them with cuda_sort: the scene's
@@ -57,6 +58,7 @@ exits non-zero and prints no result. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import statistics
@@ -304,6 +306,23 @@ def close(a, b, atol, rtol):
         bool((err <= atol + rtol * b.abs()).all())
 
 
+def fwd_digest(tfin, kfin) -> str:
+    """sha256 of the forward's t_final bytes, then kfin's (16 hex digits)."""
+    h = hashlib.sha256()
+    for x in (tfin, kfin):
+        h.update(x.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def fwd_outside(acc_k, tfin_k, acc_p, tfin_p):
+    """The pixels where the forward kernel's acc or t_final is outside
+    check_kernels' tolerance of its plain version's."""
+    atol = torch.full((acc_p.shape[-1],), 3e-5, device=acc_p.device)
+    atol[3:-1] = 2e-4
+    return ((acc_k - acc_p).abs() > atol + 1e-3 * acc_p.abs()).any(-1) | \
+        ((tfin_k - tfin_p).abs() > 3e-5 + 1e-3 * tfin_p.abs())
+
+
 def check_kernels(fwd_args, bwd_args, label, card, fails):
     """Each kernel against its plain version on the same inputs. The two
     sum in different orders (sequential per pixel and float atomics
@@ -320,7 +339,9 @@ def check_kernels(fwd_args, bwd_args, label, card, fails):
         rounding at a chunk end);
       * backward dgeo and dfeats: atol 2e-4 x the array's max |plain| /
         rtol 2e-2, the JAX suite's gradient tolerance
-        (tests/test_pallas_grad.py) scaled to the gradients' magnitude."""
+        (tests/test_pallas_grad.py) scaled to the gradients' magnitude.
+    The line also prints a digest of the kernel's t_final and kfin (see
+    fwd_digest), to hold them bit for bit against another build's."""
     from legslam_torch.ops.cuda.composite import (composite_forward,
                                                   composite_forward_plain)
     from legslam_torch.ops.cuda.composite_bwd import (
@@ -329,10 +350,7 @@ def check_kernels(fwd_args, bwd_args, label, card, fails):
     torch.cuda.synchronize()
     acc_p, tfin_p, kfin_p = composite_forward_plain(*fwd_args)
     torch.cuda.synchronize()
-    atol = torch.full((acc_p.shape[-1],), 3e-5, device=acc_p.device)
-    atol[3:-1] = 2e-4
-    bad = ((acc_k - acc_p).abs() > atol + 1e-3 * acc_p.abs()).any(-1) | \
-        ((tfin_k - tfin_p).abs() > 3e-5 + 1e-3 * tfin_p.abs())
+    bad = fwd_outside(acc_k, tfin_k, acc_p, tfin_p)
     n_bad = int(bad.sum())
     ok_fwd = n_bad <= 1e-4 * bad.numel() and \
         bool((torch.maximum(tfin_k, tfin_p)[bad] <= 1e-2).all())
@@ -350,7 +368,9 @@ def check_kernels(fwd_args, bwd_args, label, card, fails):
     torch.cuda.synchronize()
     e_g, ok6 = close(dgeo_k, dgeo_p, 2e-4 * float(dgeo_p.abs().max()), 2e-2)
     e_f, ok7 = close(dfe_k, dfe_p, 2e-4 * float(dfe_p.abs().max()), 2e-2)
-    print(f"[kernels {label}] fwd max|err| acc {e_acc:.3g} t_final {e_t:.3g}"
+    print(f"[kernels {label}] fwd t_final/kfin digest "
+          f"{fwd_digest(tfin_k, kfin_k)}; fwd max|err| acc {e_acc:.3g} "
+          f"t_final {e_t:.3g}"
           f" on all but {n_bad}/{bad.numel()} pixels (termination flips; "
           f"max|err| over all pixels {e_all:.3g}); kfin differs on "
           f"{n_kdiff}/{dk.numel()} tiles; bwd max|err| dgeo {e_g:.3g} "

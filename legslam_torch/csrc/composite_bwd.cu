@@ -50,8 +50,6 @@
 // element and block (at most 8 per element for a 16x128 tile), so the
 // order changes the result by a few ulp of the largest partial only; a
 // pair no pixel composites gets no add and reads 0.
-#include <cstdint>
-
 #include "composite_common.cuh"
 
 namespace legslam {
@@ -89,24 +87,6 @@ struct Smem {
 template <int NCH>
 __device__ __forceinline__ int g_index(int p, int c) {
   return p * NCH + (c ^ (p & 4));
-}
-
-// x = hi + lo as TF32 operands. The tensor cores read the top 19 bits of
-// a TF32 register, so x itself is hi, and x less its top 19 bits (exact)
-// is lo, of which they read the top 19 bits in turn.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = __float_as_uint(x);
-  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 template <int NCH, typename FeatT>

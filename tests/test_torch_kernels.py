@@ -12,9 +12,10 @@ also runs on a machine with a card (the JAX conftest skipped):
   in float32 and bfloat16 features. Tolerances: acc and t_final atol 2e-4
   / rtol 1e-3 (the JAX suite's forward tolerance, LF channels' atol for
   all), kfin equal; dgeo and dfeats atol 2e-4 / rtol 2e-2 (its gradient
-  tolerance), with cotangents sized like a mean loss's. The radix sort
-  kernels against their plain versions bit for bit: keys with ties, all
-  equal, 97% one value, INT32_MIN / INT32_MAX, key_bits < 32,
+  tolerance), with cotangents sized like a mean loss's; and both on a
+  scene of hand-placed pairs at the kernels' edges (_edge_pairs). The
+  radix sort kernels against their plain versions bit for bit: keys with
+  ties, all equal, 97% one value, INT32_MIN / INT32_MAX, key_bits < 32,
   all-invalid depths, lengths below, at and above one tile (2048
   elements below 2^19, 4096 below 2^21, then 8192) and not powers of
   two, and the argsort mode against torch.sort(stable).
@@ -139,16 +140,17 @@ def test_kernels_match_plain_on_card(mm_dtype, with_lf):
     _assert_close(dfe, dfe_p, 2e-4, 2e-2, "dfeats")
 
 
-# --- the backward kernel's edges -------------------------------------------
+# --- the compositing kernels' edges ----------------------------------------
 
 def _edge_pairs(device, mm_dtype, nch):
     """Backward arguments of hand-placed pairs on a 160x48 image (tiles
     16x128: 2 columns, the second ragged, x 128..255 past the image's
-    160, and 3 rows), and the pair rows whose gradient must be exactly 0:
-      tile 0: 87 pairs (5 batches of 16 and a ragged 7), among them one
-        far outside the tile (composited by no pixel) and one 0.7 px
-        wide on rows 0-1 (composited in the first block of 256 pixels
-        only);
+    160, and 3 rows), and the pair rows whose gradient must be exactly 0;
+    the forward's arguments are ba[:4] + ba[8:]:
+      tile 0: 87 pairs (the backward's 5 batches of 16 and a ragged 7,
+        the forward's 2 of 32 and a ragged 23), among them one far
+        outside the tile (composited by no pixel) and one 0.7 px wide on
+        rows 0-1 (composited in the first block of 256 pixels only);
       tile 1: 40 pairs around the image's right edge;
       tiles 2 and 5: no pairs;
       tile 3: 20 pairs of opacity 0.93 as wide as the tile: every pixel
@@ -230,6 +232,27 @@ def test_backward_kernel_edges_on_card(mm_dtype, nch):
     _assert_close(dgeo, dgeo_p, 2e-4, 2e-2, "dgeo")
     _assert_close(dfe, dfe_p, 2e-4, 2e-2, "dfeats")
     assert torch.all(dgeo[zero_rows] == 0) and torch.all(dfe[zero_rows] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nch", [72, 8])
+@pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16"])
+def test_forward_kernel_edges_on_card(mm_dtype, nch):
+    """The forward kernel against its plain version on the edge scene
+    (_edge_pairs): acc and t_final atol 2e-4 / rtol 1e-3, kfin equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    ba, _ = _edge_pairs("cuda", mm_dtype, nch)
+    fa = ba[:4] + ba[8:]
+    launches = CF.composite_forward.launches
+    acc, tfin, kfin = CF.composite_forward(*fa)
+    torch.cuda.synchronize()
+    assert CF.composite_forward.launches == launches + 1
+    _assert_close(acc, ba[7], 2e-4, 1e-3, "acc")
+    _assert_close(tfin, ba[6], 2e-4, 1e-3, "t_final")
+    assert torch.equal(kfin, CF.composite_forward_plain(*fa)[2])
+    # the empty tiles: background, nothing composited
+    assert torch.all(acc[[2, 5]] == 0) and torch.all(tfin[[2, 5]] == 1)
 
 
 # --- the sort kernels (bit-exact: a sort has one right answer) -----------
