@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Build legslam_torch's CUDA kernels and drive the port's mapping step and
-its online mapper on one NVIDIA H100.
+"""Build legslam_torch's CUDA kernels and drive the port's mapping step, its
+online mapper, its language-feature encoder and its RGB-D system loop on
+one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -46,7 +47,16 @@ Phases (each prints one or more lines; any failure exits non-zero):
      store a rung, equal bit for bit; then the same run with float32
      pair features on the kernels and on the "torch" compositor with
      torch.sort, whose PSNRs must match (see mapper_phase);
-  6. a {"kernels": [...]} line, then the card line, then as the last line
+  6. the system path: [encoder] the DINOv2 + PCA language-feature encoder
+     on the card, the full-size golden fixture against its goldens and
+     the full ViT-B/14-reg (seeded) on a 1200x680 frame against the same
+     encoder on the CPU, and its ms a frame beside its FLOPs and bound
+     (see encoder_phase); [system] the 40 frames of phase 5 through the
+     app's own per-frame function (apps/replica_rgbd.process_frame) with
+     that encoder on every frame, the GT-pose frontend and the mapper on
+     the four kernels: frames/s, ms a frame, the encoder's ms a frame, the
+     kernels' launches, and the gates of system_phase;
+  7. a {"kernels": [...]} line, then the card line, then as the last line
      {"ok": true, "device": {...}}.
 
 Each kernel's `launches` is its count over the path that runs it: the
@@ -745,11 +755,23 @@ def same_binning(a, b, capacity=None) -> bool:
         torch.equal(a[1], b[1])
 
 
-def mapper_phase(dev, card, fails, out_dir):
-    """Phase 5: GaussianMapper over a 40-frame 1200x680 sequence of the
-    synthetic room of 200k gaussians, with the "cuda" backend, bf16 pair
-    features and cuda_sort. Returns the kernels' launch counts over that
-    run and the phase's seconds.
+def render_room(dev):
+    """The 40-frame 1200x680 sequence of the synthetic room of 200k
+    gaussians, rendered on the card once for phases 5 and 6: (dataset,
+    frames, seconds)."""
+    from legslam_torch.data.synthetic import SyntheticDataset
+    t0 = time.perf_counter()
+    ds = SyntheticDataset(**MAPPER_ROOM, device=dev)
+    frames = [ds.read(i) for i in range(len(ds))]
+    sync(dev)
+    return ds, frames, time.perf_counter() - t0
+
+
+def mapper_phase(dev, card, fails, out_dir, ds, frames, render_s):
+    """Phase 5: GaussianMapper over the 40-frame 1200x680 sequence of the
+    synthetic room of 200k gaussians (render_room), with the "cuda"
+    backend, bf16 pair features and cuda_sort. Returns the kernels' launch
+    counts over that run and the phase's seconds.
 
     The room's 200k blobs of opacity 0.9 overlap into a fog whose colours
     average to gray: a flat 0.5 image scores ~25 dB PSNR on it, and a short
@@ -771,18 +793,12 @@ def mapper_phase(dev, card, fails, out_dir):
     import dataclasses
 
     from legslam_torch.config import RasterizeConfig
-    from legslam_torch.data.synthetic import SyntheticDataset
     from legslam_torch.models import gaussians as G
     from legslam_torch.ops import losses as L
     from legslam_torch.ops.cuda import composite as cf
     from legslam_torch.ops.cuda import composite_bwd as cb
     from legslam_torch.ops.cuda import sort as cs
-    secs = {}
-    t0 = time.perf_counter()
-    ds = SyntheticDataset(**MAPPER_ROOM, device=dev)
-    frames = [ds.read(i) for i in range(len(ds))]
-    sync(dev)
-    secs["render"] = time.perf_counter() - t0
+    secs = {"render": render_s}
     kernels = dict(composite_fwd=cf.composite_forward,
                    composite_bwd=cb.composite_backward,
                    sort_keys=cs.sort_keys, sort_kv=cs.sort_kv)
@@ -898,6 +914,294 @@ def mapper_phase(dev, card, fails, out_dir):
     if not grown_same:
         fails.append("mapper: the grown store bins or renders differently")
     return launches, secs
+
+
+# --- phase 6: the encoder and the system loop --------------------------------
+
+def encoder_flops(cfg, n_patches: int, k: int = 64) -> int:
+    """Operations of one encoder forward (2 per multiply-add): the patch
+    embedding, each block's qkv, logits, weights x values, projection and
+    MLP products over the patches + CLS + register tokens, and the PCA.
+    LayerNorm, softmax, GELU and the resize are not counted (under 1%)."""
+    d, hid = cfg.dim, int(cfg.dim * cfg.mlp_ratio)
+    n = n_patches + 1 + cfg.num_registers
+    patch = 2 * n_patches * 3 * cfg.patch_size ** 2 * d
+    block = 2 * n * d * 3 * d + 2 * (2 * n * n * d) + 2 * n * d * d + \
+        2 * (2 * n * d * hid)
+    return patch + cfg.depth * block + 2 * n_patches * d * k
+
+
+def seeded_encoder(dev):
+    """The full ViT-B/14-reg from init_params (seed 0, drawn on the CPU)
+    and a seeded orthonormal 768 -> 64 PCA with a small mean, as an
+    encoder on `dev` in the default dtype; and its parameters."""
+    from legslam_torch.models import dinov2 as D
+    from legslam_torch.models import pca as PCA
+    from legslam_torch.models.encoder import LanguageFeaturesEncoder
+    cfg = D.DinoV2Config()
+    dino = D.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    q, _ = np.linalg.qr(rng.normal(size=(cfg.dim, 64)))
+    pca = PCA.PCAParams(
+        torch.tensor((rng.normal(size=cfg.dim) * 0.01).astype(np.float32)),
+        torch.tensor(q.T.astype(np.float32)))
+    return LanguageFeaturesEncoder(dino, pca, cfg, device=dev), (dino, pca)
+
+
+def per_call_ms(fn, n, warmup=5):
+    """Median CUDA-event ms of `fn()` over n back-to-back calls after
+    `warmup`, and the median host ms a call takes to return when the card
+    is idle at its start (its enqueue time: back to back, a host that runs
+    ahead fills the launch queue and then waits on the card)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events, host = [], []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events), \
+        statistics.median(host)
+
+
+def encoder_phase(dev, card, fails):
+    """The encoder on the card. Correctness: the full-size golden fixture
+    (width 768, 12 heads, 2 blocks, HF-torch goldens) in float32 at 518x518
+    and 588x546 at atol 5e-4 / rtol 2e-3 (tests/test_golden_fixtures.py);
+    the full 12-block ViT-B/14-reg (seeded_encoder) in the default dtype
+    (bf16 weights, float32 arithmetic) on a seeded 1200x680 frame against
+    the same encoder on the CPU: every token's cosine >= 0.9999 and max
+    |err| <= 1e-3 (the LF values reach ~0.16; rounding the bf16 patch
+    embedding two ways on the CPU moved them by 5.4e-5). Time: CUDA-event
+    ms a frame (median of 30 after 5 warm-up calls) from the host frame to
+    the [37, 37, 64] grid on the card, and from a frame already on the
+    card with the host's enqueue time, beside the FLOP count and the bound
+    (the arithmetic is float32 on the CUDA cores). Returns the encoder."""
+    from legslam_torch.models import dinov2 as D
+    from legslam_torch.models.weights_io import flatten, unflatten
+    path = Path(__file__).resolve().parent / "tests" / "fixtures" / \
+        "golden_dinov2_fullsize.npz"
+    with np.load(path) as z:
+        params = D.params_from_numpy(unflatten(
+            {k[len("param:"):].replace(".", "/"): z[k] for k in z.files
+             if k.startswith("param:")}), dev)
+        rest = {k: z[k] for k in z.files if not k.startswith("param:")}
+    gold = {}
+    for which in ("", "_rect"):
+        img = torch.as_tensor(rest[f"input:images{which}"], device=dev)
+        got = D.forward(params, img, D.DinoV2Config(depth=2))
+        want = torch.as_tensor(rest[f"golden:patchtokens{which}"],
+                               device=dev)
+        gold[which or "_square"], ok = close(got, want, 5e-4, 2e-3)
+        if got.shape != want.shape or not ok:
+            fails.append(f"encoder: golden fixture{which} outside tolerance")
+    del params, rest
+
+    enc, (dino, pca) = seeded_encoder(dev)
+    from legslam_torch.models.encoder import LanguageFeaturesEncoder
+    cpu_enc = LanguageFeaturesEncoder(dino, pca, enc.cfg, device="cpu")
+    frame = np.random.default_rng(1).uniform(
+        size=(680, 1200, 3)).astype(np.float32)
+    lf = enc.create_language_features(frame)
+    sync(dev)
+    t0 = time.perf_counter()
+    ref = cpu_enc.create_language_features(frame)
+    cpu_s = time.perf_counter() - t0
+    got = lf.cpu().double().reshape(-1, 64)
+    want = ref.double().reshape(-1, 64)
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    err = float((got - want).abs().max())
+    finite = bool(torch.isfinite(lf).all())
+    if lf.shape != (37, 37, 64) or not finite or \
+            not float(cos.min()) >= 0.9999 or not err <= 1e-3:
+        fails.append(f"encoder: card vs CPU cosine min {float(cos.min())} "
+                     f"max|err| {err}, shape {tuple(lf.shape)}, finite "
+                     f"{finite}")
+    del cpu_enc, ref
+
+    on_card = torch.as_tensor(frame, device=dev)
+    with ClockSampler() as clk:
+        ms_host, _ = per_call_ms(
+            lambda: enc.create_language_features(frame), 30)
+        ms_dev, enqueue = per_call_ms(
+            lambda: enc.create_language_features(on_card), 30)
+    flops = encoder_flops(enc.cfg, 37 * 37)
+    nbytes = sum(a.nbytes for a in flatten(enc._cast_params).values()) + \
+        frame.nbytes + 37 * 37 * 64 * 4
+    tb, to = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_OPS * 1e3
+    bound = max(tb, to)
+    print(f"[encoder] golden fixture (768 wide, 2 blocks, float32) max|err| "
+          f"518x518 {gold['_square']:.3g}, 588x546 {gold['_rect']:.3g} "
+          f"(gate atol 5e-4 / rtol 2e-3); ViT-B/14-reg 12 blocks seeded + "
+          f"orthonormal PCA, {str(enc.dtype).split('.')[-1]} weights, on a "
+          f"seeded 1200x680 frame: [37, 37, 64] card vs CPU per-token "
+          f"cosine min {float(cos.min()):.8f} max|err| {err:.3g} (|LF| max "
+          f"{float(want.abs().max()):.3g}; CPU forward {cpu_s:.1f} s) "
+          f"[{card}]")
+    print(f"[encoder] ms a frame (median of 30, CUDA events): "
+          f"{ms_host:.3f} from the host frame, {ms_dev:.3f} from a frame on "
+          f"the card (host enqueue {enqueue:.3f} ms); {flops / 1e9:.1f} GFLOP"
+          f" a frame, {flops / 1e9 / ms_dev:.1f} TFLOP/s; bound "
+          f"{bound:.3f} ms by {'bytes' if tb >= to else 'operations'} "
+          f"({PEAK_F32_OPS / 1e12:.0f} TFLOP/s float32, {nbytes / 1e6:.0f} "
+          f"MB) [{card}]")
+    print(f"[clocks] encoder timing: {clk.summary()} [{card}]")
+    return enc
+
+
+class TimedEncoder:
+    """An encoder whose create_language_features records CUDA events
+    around each call, so the system loop reports the encoder's ms a
+    frame without synchronising inside it."""
+
+    def __init__(self, enc):
+        self.enc, self.events = enc, []
+
+    def create_language_features(self, rgb):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        lf = self.enc.create_language_features(rgb)
+        b.record()
+        self.events.append((a, b))
+        return lf
+
+
+@torch.no_grad()
+def keyframe_lf_cosine(mapper, state=None) -> float:
+    """Mean over the mapper's keyframes of the mean per-pixel cosine
+    between the LF rendered from `state` (the mapper's own by default) at
+    full resolution and the keyframe's gt_lf upsampled as training does."""
+    from legslam_torch.mapper.train_step import upsample_lf
+    from legslam_torch.ops import losses as L
+    final = mapper.state
+    mapper.state = final if state is None else state
+    try:
+        vals = []
+        for kf in mapper.keyframes.values():
+            v = kf.views[-1]
+            out = mapper.render_from_pose(kf.R, kf.t, v.width, v.height,
+                                          include_lang_feat=True)
+            vals.append(float(L.lf_cosine_similarity(
+                out.lang_feat, upsample_lf(kf.gt_lf, v.height, v.width))))
+        return statistics.mean(vals)
+    finally:
+        mapper.state = final
+
+
+SYSTEM_ITERS_PER_FRAME = 7
+LF_MARGIN = 0.2
+
+
+def system_phase(dev, card, fails, out_dir, ds, frames, enc):
+    """Phase 6: the reference's RGB-D system loop on the card through the
+    app's own per-frame function (apps/replica_rgbd.process_frame): the
+    40 frames of phase 5's room, the full-size seeded encoder on every
+    frame, the GT-pose frontend (every 4th frame a keyframe) and
+    GaussianMapper on cuda / bf16 / cuda_sort with phase 5's schedule
+    (7 iterations a frame once the map starts, densify every 50 from 40,
+    refresh 8), then the tail. Gates: every keyframe's gt_lf is the very
+    tensor the encoder returned for its frame (bit for bit); each of the
+    four kernels launched in the phase; and the map's LF is earned: the
+    reference's loss ADDS the mean cosine between rendered and encoder LF
+    (gaussian_mapper.cpp:716-721, replicated by both packages' losses),
+    so training drives that cosine down from the initial map's (0: the
+    store starts with zero LF) and the queries read the inverted
+    similarity (1 - cos) / 2 (eval_harness/metrics.segment_prediction).
+    The gate: the keyframes' mean cosine ends at least LF_MARGIN below the
+    map right after initialize_map."""
+    from legslam_torch.apps.replica_rgbd import process_frame
+    from legslam_torch.config import (MapperParams, OptimizationParams,
+                                      RasterizeConfig)
+    from legslam_torch.mapper.mapper import GaussianMapper
+    from legslam_torch.models import gaussians as G
+    from legslam_torch.ops.cuda import composite as cf
+    from legslam_torch.ops.cuda import composite_bwd as cb
+    from legslam_torch.ops.cuda import sort as cs
+    from legslam_torch.slam.trajectory import TrajectoryFrontend
+    frontend = TrajectoryFrontend(ds.intrinsics, kf_stride=4)
+    opt = OptimizationParams(densify_from_iter=40, densification_interval=50)
+    mapper = GaussianMapper(
+        frontend.queue, ds.intrinsics, opt=opt,
+        mp=MapperParams(min_num_initial_map_kfs=4),
+        cfg=RasterizeConfig(backend="cuda", mm_dtype="bfloat16",
+                            cuda_sort=True),
+        capacity=1 << 18, result_dir=out_dir, max_per_tile=2048,
+        binning_refresh_interval=8, device=dev)
+    init = []
+    initialize = mapper.initialize_map
+
+    def initialize_and_copy():
+        initialize()
+        init.append(G.copy_state(mapper.state))
+    mapper.initialize_map = initialize_and_copy
+    timed = TimedEncoder(enc)
+    kernels = dict(composite_fwd=cf.composite_forward,
+                   composite_bwd=cb.composite_backward,
+                   sort_keys=cs.sort_keys, sort_kv=cs.sort_kv)
+    lfs, frame_ms = {}, []
+    sync(dev)
+    with ClockSampler() as clk:
+        for fn in kernels.values():
+            fn.launches = 0
+        t_start = time.perf_counter()
+        for f in frames:
+            t0 = time.perf_counter()
+            lfs[f.index] = process_frame(
+                f, frontend, mapper, timed,
+                iters_per_frame=SYSTEM_ITERS_PER_FRAME)
+            sync(dev)
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+        total_s = time.perf_counter() - t_start
+        frontend.finish()
+        mapper.drain_operations(limit=10_000)
+        for _ in range(int(0.8 * opt.densification_interval)):
+            mapper.train_iteration()
+        sync(dev)
+        launches = {k: fn.launches for k, fn in kernels.items()}
+    enc_ms = [a.elapsed_time(b) for a, b in timed.events]
+    same = [torch.equal(kf.gt_lf, lfs[fid])
+            for fid, kf in mapper.keyframes.items()]
+    cos_final = keyframe_lf_cosine(mapper)
+    cos_init = keyframe_lf_cosine(mapper, init[0]) if init else float("nan")
+    stats = mapper.record_keyframe_metrics("experiment")
+    p = sorted(frame_ms)
+    print(f"[system] {len(frames)} frames {ds.intrinsics['width']}x"
+          f"{ds.intrinsics['height']} through "
+          f"apps/replica_rgbd.process_frame: encoder on every frame, "
+          f"{len(mapper.keyframes)} keyframes, {mapper.iteration} iterations "
+          f"({SYSTEM_ITERS_PER_FRAME} a frame once mapping, then the tail), "
+          f"num_valid {int(mapper.state.num_valid())}; "
+          f"{len(frames) / total_s:.3f} frames/s, ms a frame median "
+          f"{statistics.median(p):.2f} p90 {p[int(0.9 * (len(p) - 1))]:.2f}, "
+          f"encoder ms a frame median {statistics.median(enc_ms):.3f} (CUDA "
+          f"events); launches in the phase {launches}; keyframe gt_lf is the "
+          f"encoder's tensor: {sum(same)}/{len(same)}; LF mean cosine "
+          f"rendered vs encoder {cos_final:.4f} (initial map {cos_init:.4f}, "
+          f"gate <= initial - {LF_MARGIN}); keyframe PSNR "
+          f"{stats['psnr']:.2f} dB [{card}]")
+    print(f"[clocks] system loop: {clk.summary()} [{card}]")
+    if not same or not all(same):
+        fails.append(f"system: {len(same) - sum(same)} of {len(same)} "
+                     "keyframes' gt_lf differ from the encoder's output")
+    for k, v in launches.items():
+        if v == 0:
+            fails.append(f"system: {k} launched no time")
+    if not cos_final <= cos_init - LF_MARGIN:
+        fails.append(f"system: LF cosine {cos_final:.4f} not {LF_MARGIN} "
+                     f"below the initial map's {cos_init:.4f}")
+    if not math.isfinite(stats["psnr"]):
+        fails.append("system: keyframe PSNR not finite")
 
 
 def build_phase():
@@ -1055,8 +1359,19 @@ def main() -> int:
     # phase 5: the online mapper
     t_phase = time.perf_counter()
     out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
-    mapper_launches, _ = mapper_phase(dev, card, fails, str(out_dir))
+    ds, frames, render_s = render_room(dev)
+    mapper_launches, _ = mapper_phase(dev, card, fails, str(out_dir), ds,
+                                      frames, render_s)
     phase_s["mapper"] = time.perf_counter() - t_phase
+
+    # phase 6: the encoder, then the system loop with it
+    t_phase = time.perf_counter()
+    enc = encoder_phase(dev, card, fails)
+    phase_s["encoder"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    system_phase(dev, card, fails, str(out_dir) + "_system", ds, frames, enc)
+    del enc, ds, frames
+    phase_s["system"] = time.perf_counter() - t_phase
     print(f"[phases] seconds {({k: round(v, 1) for k, v in phase_s.items()})}"
           f", total {sum(phase_s.values()):.1f} [{card}]")
 

@@ -8,16 +8,19 @@ output lines:
       [--cfg cfg/gaussian_mapper/RGB-D/Replica/office0.yaml] \
       [--camera-cfg cfg/camera/RGB-D/Replica/office0.yaml] \
       [--kf-stride 8] [--max-frames N] [--capacity 262144] [--no-lf] \
+      [--encoder-weights <dir with dinov2.npz + pca.npz>] \
       [--device cuda|cpu]
 
 Prints per-run "Average FPS" and "Total time" lines like the reference
 (examples/replica_rgbd.cpp:196-199) and writes the experiment/ply artifact
-tree, TrackingTime.txt, GpuPeakUsageMB.txt and the trajectory files.
+tree, TrackingTime.txt, GpuPeakUsageMB.txt and the trajectory files. With
+--encoder-weights the DINOv2 + PCA encoder computes every frame's 37x37x64
+language features on the device (models/encoder.py), and the keyframes
+keep them there.
 
-Not ported yet (they raise, see ROADMAP.md): `--frontend visual` and
-`--encoder-weights`. The JAX app's persistent XLA compilation cache has no
-counterpart: PyTorch runs eagerly and the kernels are built once into
-build/legslam_torch/.
+Not ported yet (it raises, see ROADMAP.md): `--frontend visual`. The JAX
+app's persistent XLA compilation cache has no counterpart: PyTorch runs
+eagerly and the kernels are built once into build/legslam_torch/.
 """
 from __future__ import annotations
 
@@ -30,18 +33,25 @@ import numpy as np
 import torch
 
 
-def save_peak_memory(path: str, device: torch.device) -> None:
-    """The reference's GpuPeakUsageMB.txt (examples/replica_rgbd.cpp:
-    280-294): one 'device peak_mb in_use_mb' line from PyTorch's caching
-    allocator."""
-    with open(path, "w") as f:
-        if device.type != "cuda":
-            f.write(f"{device} peak_mb=not measured\n")
-            return
-        peak = torch.cuda.max_memory_allocated(device) / 2 ** 20
-        cur = torch.cuda.memory_allocated(device) / 2 ** 20
-        f.write(f"{torch.cuda.get_device_name(device)} peak_mb={peak:.1f} "
-                f"in_use_mb={cur:.1f}\n")
+def process_frame(frame, frontend, mapper, encoder=None, lf_image=None,
+                  iters_per_frame: int = 1):
+    """One frame of the online loop, run serially (the reference tracks
+    and maps in concurrent threads): the frame's language features (the
+    encoder's, else `lf_image`), tracking, the mapper's drain of the
+    frontend's operations, map initialization once its conditions hold,
+    then `iters_per_frame` mapping iterations. Returns the LF image handed
+    to the frontend; the encoder's stays on its device, and the keyframe
+    keeps that tensor."""
+    if encoder is not None:
+        lf_image = encoder.create_language_features(frame.color)
+    frontend.track(frame, lf_image=lf_image)
+    mapper.drain_operations()
+    if mapper.state is None and mapper.has_met_initial_conditions():
+        mapper.initialize_map()
+    if mapper.state is not None:
+        for _ in range(iters_per_frame):
+            mapper.train_iteration()
+    return lf_image
 
 
 def main(argv=None):
@@ -70,7 +80,7 @@ def main(argv=None):
     parser.add_argument("--iters-per-frame", type=int, default=1)
     parser.add_argument("--encoder-weights", default=None,
                         help="dir with dinov2.npz/pca.npz for the LF "
-                        "encoder (not ported yet)")
+                        "encoder")
     parser.add_argument("--no-lf", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--max-per-tile", type=int, default=2048,
@@ -109,15 +119,12 @@ def main(argv=None):
         raise NotImplementedError(
             "--frontend visual: slam/tracking.py is not ported to "
             "legslam_torch yet; see ROADMAP.md")
-    if args.encoder_weights and not args.no_lf:
-        raise NotImplementedError(
-            "--encoder-weights: the language-feature encoder is not ported "
-            "to legslam_torch yet; see ROADMAP.md")
 
     from legslam_torch.config import RasterizeConfig
     from legslam_torch.data.datasets import open_dataset
     from legslam_torch.mapper.mapper import GaussianMapper
     from legslam_torch.slam.trajectory import TrajectoryFrontend
+    from legslam_torch.utils.runtime import profile_trace, save_peak_memory
 
     device = torch.device(args.device)
     backend = args.backend
@@ -166,15 +173,16 @@ def main(argv=None):
                             sensor_type="monocular" if base_sensor == "mono"
                             else base_sensor, device=device)
 
+    encoder = None
+    if args.encoder_weights and not args.no_lf:
+        from legslam_torch.models.weights_io import load_encoder
+        encoder = load_encoder(args.encoder_weights, device=device)
+
     n = len(ds) if args.max_frames is None else min(len(ds),
                                                     args.max_frames)
     track_times = []
-    prof = contextlib.nullcontext()
-    if args.profile_dir:
-        from torch.profiler import ProfilerActivity, profile
-        acts = [ProfilerActivity.CPU] + (
-            [ProfilerActivity.CUDA] if device.type == "cuda" else [])
-        prof = profile(activities=acts)
+    prof = profile_trace(args.profile_dir) if args.profile_dir else \
+        contextlib.nullcontext()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t_start = time.perf_counter()
@@ -183,18 +191,9 @@ def main(argv=None):
         for _ in range(n):
             frame = next(it)
             t0 = time.perf_counter()
-            frontend.track(frame, lf_image=None)
-            mapper.drain_operations()
-            if mapper.state is None and mapper.has_met_initial_conditions():
-                mapper.initialize_map()
-            if mapper.state is not None:
-                for _ in range(args.iters_per_frame):
-                    mapper.train_iteration()
+            process_frame(frame, frontend, mapper, encoder,
+                          iters_per_frame=args.iters_per_frame)
             track_times.append(time.perf_counter() - t0)
-    if args.profile_dir:
-        os.makedirs(args.profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.profile_dir,
-                                              "trace.json"))
     total = time.perf_counter() - t_start
     frontend.finish()
 

@@ -66,6 +66,15 @@ SSIM_C2 = 0.03 ** 2
 Z_NEAR = 0.01
 Z_FAR = 100.0
 
+# Language encoder (cfg/encoder/pca_encoder_scannet.yaml, encoder_models.cpp)
+ENCODER_INPUT_SIZE = 518
+ENCODER_PATCH = 14
+ENCODER_GRID = 37             # 518 / 14
+ENCODER_TOKENS = 1369         # 37 * 37
+ENCODER_FEAT_DIM = 768
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
 BACKENDS = ("torch", "cuda")
 MM_DTYPES = ("float32", "bfloat16")
 

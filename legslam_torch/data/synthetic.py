@@ -4,11 +4,15 @@ Counterpart of legslam_tpu/data/synthetic.py: a procedural "room" of
 colored gaussians, GT color/depth rendered from a circular camera path by
 the port's reference ("torch") compositor under torch.no_grad(), served
 through the BaseDataset interface. The scene and poses are the JAX
-module's, draw for draw, from the same seed. The JAX module's on-disk
-preload cache is not ported: frames are rendered on first read and kept
-in memory.
+module's, draw for draw, from the same seed. Frames are rendered on
+first read and kept in memory; `preload` renders them all at once, backed
+by an npz cache in a directory the caller names.
 """
 from __future__ import annotations
+
+import hashlib
+import json
+import os
 
 import numpy as np
 import torch
@@ -85,6 +89,45 @@ class SyntheticDataset(BaseDataset):
         return dict(xyz=self._xyz, colors=self._colors, lf=self._lf,
                     scales=self._scales, opacity=self._opacity,
                     quats=self._quats)
+
+    def cache_key(self) -> str:
+        """Digest of everything a frame depends on (scene + poses + cfg +
+        the device type, whose rounding the frames carry), for the
+        on-disk preload cache."""
+        h = hashlib.sha1()
+        for a in (self._xyz, self._colors, self._scales, self._opacity,
+                  np.asarray(self._poses, np.float32)):
+            h.update(np.ascontiguousarray(a).tobytes())
+        h.update(json.dumps(
+            [self.intrinsics, repr(self._cfg), self.device.type, 1],
+            sort_keys=True).encode())
+        return h.hexdigest()[:16]
+
+    def preload(self, cache_dir: str | None = None) -> None:
+        """Render ALL frames into the in-memory cache. With `cache_dir`,
+        they are also backed by an npz there, so a later process with the
+        same scene reads the file instead of rendering."""
+        if len(self._cache) == self._n:
+            return
+        if cache_dir is None:
+            for i in range(self._n):
+                self.read(i)
+            return
+        os.makedirs(cache_dir, exist_ok=True)
+        path = os.path.join(cache_dir, f"gt_{self.cache_key()}.npz")
+        if os.path.exists(path):
+            with np.load(path) as z:
+                color, depth = z["color"], z["depth"]
+            for i in range(self._n):
+                self._cache[i] = RGBDFrame(
+                    index=i, timestamp=float(i), color=color[i],
+                    depth=depth[i], c2w=self._poses[i])
+            return
+        frames = [self.read(i) for i in range(self._n)]
+        tmp = path[:-4] + f".tmp{os.getpid()}.npz"
+        np.savez(tmp, color=np.stack([f.color for f in frames]),
+                 depth=np.stack([f.depth for f in frames]))
+        os.replace(tmp, path)
 
     @torch.no_grad()
     def read(self, i: int) -> RGBDFrame:

@@ -18,6 +18,7 @@ import threading
 from typing import Optional, Protocol, Sequence
 
 import numpy as np
+import torch
 
 
 class OpKind(enum.IntEnum):
@@ -37,7 +38,9 @@ class KeyframePacket:
     t: np.ndarray                 # [3]
     color: np.ndarray             # [H,W,3] float32 RGB
     depth: Optional[np.ndarray]   # [H,W] float32 meters
-    lf_image: Optional[np.ndarray]  # [37,37,64] language features
+    # [37,37,64] language features: host array, or the encoder's tensor,
+    # which stays on its device
+    lf_image: Optional[np.ndarray | torch.Tensor]
     # rectified right image for STEREO sensors (KeyFrame::imgAuxiliary in
     # stereo mode feeds the SGM densify branch, gaussian_mapper.cpp:1302)
     color_right: Optional[np.ndarray] = None

@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from legslam_torch.data.datasets import RGBDFrame
 from legslam_torch.slam.interface import (
@@ -71,7 +72,8 @@ class TrajectoryFrontend:
         self._n_keyframes = 0
 
     def track(self, frame: RGBDFrame,
-              lf_image: Optional[np.ndarray] = None) -> Optional[KeyframePacket]:
+              lf_image: Optional[np.ndarray | torch.Tensor] = None
+              ) -> Optional[KeyframePacket]:
         """Process one frame; returns the KeyframePacket if it became a KF."""
         if frame.c2w is None:
             raise ValueError("TrajectoryFrontend needs GT/precomputed poses")

@@ -111,9 +111,73 @@ def test_replica_layout_cli_end_to_end(replica_scene, tmp_path, capsys):
     assert float(psnrs.mean()) > 12.0, psnrs
 
 
-@pytest.mark.parametrize("flags", [["--frontend", "visual"],
-                                   ["--encoder-weights", "weights"]])
+@pytest.mark.parametrize("flags", [["--frontend", "visual"]])
 def test_unported_options_raise(replica_scene, tmp_path, flags):
     from legslam_torch.apps.replica_rgbd import main
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["--data", str(replica_scene), "--out", str(tmp_path)] + flags)
+
+
+# the small DINOv2 of the JAX suite (tests/test_dinov2.py): 56x56 input,
+# a 4x4 grid of 64-D features after a 64 -> 64 PCA
+SMALL = dict(image_size=56, patch_size=14, dim=64, depth=2, heads=2,
+             num_registers=4, pos_grid=4)
+
+
+def _small_weights(out_dir):
+    """A seeded small-config dinov2.npz + pca.npz in `out_dir`, written
+    by the port's save_params / pca.save."""
+    from legslam_torch.models import dinov2 as D
+    from legslam_torch.models import pca as PCA
+    from legslam_torch.models.weights_io import save_params
+    dino = D.init_params(D.DinoV2Config(**SMALL),
+                         torch.Generator().manual_seed(5), device="cpu")
+    q, _ = np.linalg.qr(np.random.default_rng(5).normal(size=(64, 64)))
+    os.makedirs(out_dir, exist_ok=True)
+    save_params(os.path.join(out_dir, "dinov2.npz"), dino)
+    PCA.save(os.path.join(out_dir, "pca.npz"), PCA.PCAParams(
+        torch.zeros(64), torch.as_tensor(q, dtype=torch.float32)))
+    return out_dir
+
+
+def test_encoder_weights_end_to_end(replica_scene, tmp_path, monkeypatch,
+                                    capsys):
+    """--encoder-weights runs the encoder on every frame inside the app's
+    own loop (process_frame), and every keyframe keeps exactly the grid
+    the encoder gave for its frame. The full ViT-B is too slow for a CPU
+    test, so load_encoder is given the small config."""
+    import functools
+
+    from legslam_torch.apps import replica_rgbd
+    from legslam_torch.models import dinov2 as D
+    from legslam_torch.models import weights_io
+    wdir = _small_weights(str(tmp_path / "weights"))
+    monkeypatch.setattr(weights_io, "load_encoder", functools.partial(
+        weights_io.load_encoder, cfg=D.DinoV2Config(**SMALL)))
+    seen = {}
+    frame_step = replica_rgbd.process_frame
+
+    def recording(frame, frontend, mapper, encoder=None, **kw):
+        lf = frame_step(frame, frontend, mapper, encoder, **kw)
+        seen[frame.index] = (frame.color, lf, encoder, mapper)
+        return lf
+    monkeypatch.setattr(replica_rgbd, "process_frame", recording)
+    cfg = tmp_path / "tiny_rgbd.yaml"
+    cfg.write_text(MAPPER_YAML)
+    args = [a for a in FAST_ARGS if a != "--no-lf"]
+    replica_rgbd.main(["--data", str(replica_scene), "--out",
+                       str(tmp_path / "run"), "--cfg", str(cfg),
+                       "--encoder-weights", wdir] + args)
+    assert "Keyframes: 5" in capsys.readouterr().out
+    assert sorted(seen) == list(range(N_FRAMES))
+    encoder, mapper = seen[0][2], seen[0][3]
+    assert encoder is not None and encoder.dtype == torch.bfloat16
+    assert sorted(mapper.keyframes) == [0, 2, 4, 6, 8]
+    for fid, kf in mapper.keyframes.items():
+        color, lf, _, _ = seen[fid]
+        assert lf.shape == (4, 4, 64) and lf.dtype == torch.float32
+        assert torch.equal(kf.gt_lf, lf)
+        assert torch.equal(kf.gt_lf, encoder.create_language_features(color))
+    # the map's language features were trained (they start at zero)
+    assert float(mapper.state.params.lang_feat.abs().max()) > 0.0
+

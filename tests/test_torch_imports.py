@@ -1,6 +1,8 @@
 """The port stands alone: no module of legslam_torch/, and not
 chip_smoke.py, imports JAX, Flax or the JAX package (legslam_tpu), not
-even a module of it that does not import JAX. Checked on the source with
+even a module of it that does not import JAX, nor the onnx, lpips or
+transformers packages (the JAX package's optional routes to reference
+weights: the port reads the weight files itself). Checked on the source with
 ast, module by module: plain and from-imports, and importlib /
 __import__ calls with a literal name."""
 import ast
@@ -12,7 +14,8 @@ ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted(p.relative_to(ROOT).as_posix()
                for p in (ROOT / "legslam_torch").rglob("*.py")) + \
     ["chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "legslam_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "legslam_tpu", "onnx", "lpips",
+             "transformers")
 
 
 def _imported_names(tree):
