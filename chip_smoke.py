@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build legslam_torch's CUDA kernels and drive the port's mapping step, its
-online mapper, its language-feature encoder and its RGB-D system loop on
-one NVIDIA H100.
+online mapper, its language-feature encoder, its RGB-D system loop and its
+open-vocabulary query and serving stack on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -56,13 +56,26 @@ Phases (each prints one or more lines; any failure exits non-zero):
      that encoder on every frame, the GT-pose frontend and the mapper on
      the four kernels: frames/s, ms a frame, the encoder's ms a frame, the
      kernels' launches, and the gates of system_phase;
-  7. a {"kernels": [...]} line, then the card line, then as the last line
+  7. the query and serving stack (see query_phase): [query text] the CLIP
+     ViT-B/16 text tower, the Talk2DINO projection and phase 6's PCA on
+     SCANNET20 x 7 templates of seeded token ids, timed against its
+     bound and checked against the CPU; [query map] phase 4's cloud with
+     a planted object whose LF anti-aligns with one category's
+     embedding, saved as a PLY with a cameras.json of 8 1200x680 views;
+     [query server] the stdlib HTTP server answering /health and three
+     /find_objects requests over that PLY; [query pixel] the app's
+     pixel-space search with PAMR on the "cuda" backend (the forward and
+     both sort kernels), against the "torch" compositor on the card;
+     [query image] PAMR, the CLIP ViT-B/16 vision query and LPIPS(alex),
+     card against CPU;
+  8. a {"kernels": [...]} line, then the card line, then as the last line
      {"ok": true, "device": {...}}.
 
 Each kernel's `launches` is its count over the path that runs it: the
 compositing kernels' over phase 4's 24 steps, the sort kernels' over
 phase 5's training loop (phase 4 runs cuda_sort at its default and
-counts their launches too).
+counts their launches too); `query_launches` is its count over phase 7's
+pixel-space search.
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result. Imports nothing of JAX.
 """
@@ -1204,6 +1217,465 @@ def system_phase(dev, card, fails, out_dir, ds, frames, enc):
         fails.append("system: keyframe PSNR not finite")
 
 
+# --- phase 7: the open-vocabulary query and serving stack --------------------
+
+# the query map: phase 4's bench cloud (x, y in [-3, 3], z in [0.5, 8]) and
+# an object planted in the empty space in front of it, seen by cameras on
+# an arc 2-4 m away (all in z < 0.5, so nothing of the cloud lies between a
+# camera and the object)
+QUERY_MAP = dict(width=1200, height=680, fx=600.0, n_cloud=200_000,
+                 capacity=1 << 18, n_object=2000, radius=0.15,
+                 center=(0.0, 0.0, 0.1), n_cams=8)
+# one colour for the whole object, as a real object has, so PAMR's
+# image affinities hold the heat to its outline
+OBJECT_RGB = np.array([0.9, 0.15, 0.1], np.float32)
+QUERY_CATEGORY = "chair"
+SOT, EOT = 49406, 49407            # CLIP's start / end-of-text token ids
+# gates of phase 7 (stated before its first run on the card)
+TEXT_COS, TEXT_ERR = 0.99999, 1e-4          # text / image query, card vs CPU
+SERVER_CENTER_M = 0.05
+PIXEL_CENTER_M, WITNESS_CENTER_M = 0.1, 1e-3
+PAMR_ERR, LPIPS_RTOL = 1e-4, 1e-4
+
+
+def token_table(categories, seed: int = 0) -> dict:
+    """A fixed seeded stand-in for the CLIP tokenizer (no BPE vocabulary in
+    the repository): each category's 7 template sequences as [7, 77] int32
+    ids: SOT, 3-12 random word ids, EOT (the largest id, which the tower
+    pools), zero padding."""
+    from legslam_torch.models.talk2dino import TEMPLATES
+    rng = np.random.default_rng(seed)
+    table = {}
+    for c in categories:
+        toks = np.zeros((len(TEMPLATES), 77), np.int32)
+        for i in range(len(TEMPLATES)):
+            n = int(rng.integers(3, 13))
+            toks[i, 0] = SOT
+            toks[i, 1:n + 1] = rng.integers(1, SOT, size=n)
+            toks[i, n + 1] = EOT
+        table[c] = toks
+    return table
+
+
+def clip_text_flops(cfg, n_seq: int) -> int:
+    """Operations (2 per multiply-add) of encode_text over n_seq sequences
+    of cfg.context tokens: each layer's qkv, logits, weights x values,
+    projection and MLP products, and the pooled projection."""
+    w, n = cfg.width, cfg.context
+    layer = n * 2 * (3 * w * w + w * w + 8 * w * w) + 2 * 2 * n * n * w
+    return n_seq * (cfg.layers * layer + 2 * w * cfg.proj_dim)
+
+
+def clip_vision_flops(cfg) -> int:
+    w, n = cfg.width, cfg.tokens
+    layer = n * 2 * 12 * w * w + 2 * 2 * n * n * w
+    return 2 * (n - 1) * 3 * cfg.patch ** 2 * w + cfg.layers * layer + \
+        2 * w * cfg.proj_dim
+
+
+def lpips_flops(h: int, w: int) -> int:
+    """The AlexNet trunk's convolution operations for two h x w images."""
+    from legslam_torch.models.lpips import ALEX_CONVS
+    total, cin = 0, 3
+    for i, (cout, k, s, p) in enumerate(ALEX_CONVS):
+        h, w = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+        total += 2 * h * w * cout * cin * k * k
+        if i in (0, 1):
+            h, w = (h - 3) // 2 + 1, (w - 3) // 2 + 1
+        cin = cout
+    return 2 * total
+
+
+def build_query_map(dev, text_emb: np.ndarray, out_dir: Path):
+    """Phase 4's bench cloud (seed 0, steady-state scales and opacities)
+    with seeded unit LF, plus QUERY_MAP's object: n_object gaussians drawn
+    uniformly in a ball, colour OBJECT_RGB, opacity 0.95, LF = -e / |e| for
+    the query's embedding e (the training loss adds the cosine, so a
+    trained map anti-aligns). Saved as <out_dir>/point_cloud/
+    point_cloud.ply with a cameras.json of n_cams cameras on an arc 2-4 m
+    from the object, looking at it; returns the object's center."""
+    from legslam_torch.models import gaussians as G
+    from legslam_torch.utils.ply import save_gaussian_ply
+    m = QUERY_MAP
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(-3, 3, size=(m["n_cloud"], 3)).astype(np.float32)
+    pts[:, 2] = rng.uniform(0.5, 8.0, size=m["n_cloud"]).astype(np.float32)
+    cols = rng.uniform(size=(m["n_cloud"], 3)).astype(np.float32)
+    center = np.asarray(m["center"], np.float32)
+    d = rng.normal(size=(m["n_object"], 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    r = m["radius"] * rng.uniform(size=(m["n_object"], 1)) ** (1 / 3)
+    obj = (center + d * r).astype(np.float32)
+    lf = rng.normal(size=(m["n_cloud"] + m["n_object"], 64))
+    lf /= np.linalg.norm(lf, axis=1, keepdims=True)
+    lf[m["n_cloud"]:] = -text_emb / np.linalg.norm(text_emb)
+    st = G.create_from_pcd(
+        np.concatenate([pts, obj]),
+        np.concatenate([cols, np.tile(OBJECT_RGB, (m["n_object"], 1))]),
+        capacity=m["capacity"], lang_feat=lf.astype(np.float32), device=dev)
+    st = steady_state_scale_clamp(st, pts, fx=m["fx"])
+    st = steady_state_opacity(st, rng)
+    n = m["n_cloud"] + m["n_object"]
+    st.params.opacity[m["n_cloud"]:n] = math.log(0.95 / 0.05)
+    p = {k: v[:n].cpu().numpy() for k, v in st.params.as_dict().items()}
+    (out_dir / "point_cloud").mkdir(parents=True, exist_ok=True)
+    save_gaussian_ply(str(out_dir / "point_cloud" / "point_cloud.ply"),
+                      p["xyz"], p["f_dc"], p["f_rest"], p["lang_feat"],
+                      p["opacity"], p["scaling"], p["rotation"])
+    cams = []
+    for k in range(m["n_cams"]):
+        theta = math.radians(-35 + 70 * k / max(m["n_cams"] - 1, 1))
+        phi = math.radians(10 if k % 2 else -10)
+        dist = 2.0 + 2.0 * ((k * 3) % m["n_cams"]) / max(m["n_cams"] - 1, 1)
+        eye = center + dist * np.array([math.sin(theta) * math.cos(phi),
+                                        math.sin(phi),
+                                        -math.cos(theta) * math.cos(phi)])
+        fwd = (center - eye) / np.linalg.norm(center - eye)
+        right = np.cross(fwd, [0.0, -1.0, 0.0])
+        right /= np.linalg.norm(right)
+        down = np.cross(fwd, right)
+        cams.append(dict(id=k, width=m["width"], height=m["height"],
+                         position=eye.tolist(),
+                         rotation=np.stack([right, down, fwd], 1).tolist(),
+                         fx=m["fx"], fy=m["fx"]))
+    (out_dir / "cameras.json").write_text(json.dumps(cams))
+    del st
+    return center
+
+
+def _importable(name: str) -> bool:
+    import importlib.util
+    return importlib.util.find_spec(name) is not None
+
+
+def _http(url, body=None):
+    """(JSON reply, host ms) of a GET, or a POST of `body`."""
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=120) as r:
+        reply = json.load(r)
+    return reply, (time.perf_counter() - t0) * 1e3
+
+
+def _objects_json(dets, top_k=5):
+    return [dict(center=[float(x) for x in d.center],
+                 n_gaussians=d.n_gaussians, score=d.score)
+            for d in dets[:top_k]]
+
+
+def query_phase(dev, card, fails, out_dir: Path, pca):
+    """Phase 7: the open-vocabulary query and serving stack on the card,
+    through the port's entry points.
+
+    [query text] the CLIP ViT-B/16 text tower at ClipTextConfig() (seed 0),
+    the Talk2DINO projection 512 -> 768 with one hidden layer (seed 0) and
+    phase 6's PCA, on SCANNET20 x 7 templates (140 sequences of 77 token
+    ids from token_table): CUDA-event ms, FLOPs and the float32 bound;
+    QUERY_CATEGORY against the same pipeline on the CPU (cosine >=
+    TEXT_COS, max |err| <= TEXT_ERR). [query map] build_query_map with
+    that category's embedding, saved as a PLY and loaded back by the
+    server and the app. [query server] serving/api.serve_stdlib on an
+    ephemeral 127.0.0.1 port: GET /health and three POST /find_objects
+    ("text_emb", then "query" twice through a text encoder that runs the
+    text pipeline on the card): the JSON contract, the top object within
+    SERVER_CENTER_M of the planted center, each reply equal to the direct
+    find_objects_in_gaussians call. [query pixel] the app's
+    build_render_fn on the "cuda" backend (the forward and both sort
+    kernels) with PAMR at its defaults over the cameras: the center within
+    PIXEL_CENTER_M of the planted one, and the same search with the "torch"
+    compositor and torch.sort on the card as a witness (same best frame,
+    center within WITNESS_CENTER_M); PAMR on the best view card vs CPU
+    (max |err| <= PAMR_ERR). [query image] CLIP ViT-B/16 vision (seed 0) on
+    the best view through the same projection and PCA, card vs CPU
+    (TEXT_COS / TEXT_ERR); LPIPS(alex) with seeded weights between two
+    rendered views, card vs CPU (rtol LPIPS_RTOL). Returns the kernels'
+    launches in the pixel-space search."""
+    import threading
+
+    from legslam_torch.apps.find_objects import (build_render_fn, load_map,
+                                                 make_renderer, pamr_fn)
+    from legslam_torch.config import RasterizeConfig
+    from legslam_torch.eval_harness.find_objects import (
+        find_objects_in_gaussians, pixel_space_find_object, to_host,
+        view_cosine)
+    from legslam_torch.eval_harness.metrics import SCANNET20
+    from legslam_torch.models import clip_text as CT
+    from legslam_torch.models import clip_vision as CV
+    from legslam_torch.models import lpips as LP
+    from legslam_torch.models import talk2dino as T2D
+    from legslam_torch.models.pamr import pamr
+    from legslam_torch.ops.cuda import composite as cf
+    from legslam_torch.ops.cuda import composite_bwd as cb
+    from legslam_torch.ops.cuda import sort as cs
+    from legslam_torch.serving import api
+
+    # the text pipeline, on the card and (one category) on the CPU
+    tcfg = CT.ClipTextConfig()
+    cpu_pca = type(pca)(*(t.cpu() for t in pca))
+
+    def pipeline(d):
+        return (CT.init_params(tcfg, torch.Generator().manual_seed(0), d),
+                T2D.init_projection(torch.Generator().manual_seed(0),
+                                    device=d))
+    clip, proj = pipeline(dev)
+    table = token_table(SCANNET20)
+    toks = torch.as_tensor(np.stack([table[c] for c in SCANNET20]),
+                           device=dev)
+
+    def embed_all():
+        return T2D.build_text_embedding(SCANNET20, clip, proj, pca,
+                                        tokens=toks)
+    emb = embed_all()
+    sync(dev)
+    clip_cpu, proj_cpu = pipeline("cpu")
+    want = T2D.build_text_embedding(
+        [QUERY_CATEGORY], clip_cpu, proj_cpu, cpu_pca,
+        tokens=table[QUERY_CATEGORY][None])
+    got = emb[SCANNET20.index(QUERY_CATEGORY)].cpu().double()
+    want = want[0].double()
+    t_cos = float(torch.nn.functional.cosine_similarity(got, want, dim=0))
+    t_err = float((got - want).abs().max())
+    del clip_cpu, proj_cpu
+    with ClockSampler() as clk:
+        text_ms, text_enqueue = per_call_ms(embed_all, 10, warmup=3)
+    flops = clip_text_flops(tcfg, toks.numel() // tcfg.context)
+    flops += len(SCANNET20) * 2 * (512 * 768 + 768 * 768 + 768 * 64)
+    nbytes = sum(t.numel() * 4 for t in (
+        [v for b in clip["blocks"] for p in b.values() for v in p.values()]
+        + [clip["pos_embedding"], clip["text_projection"]])) + \
+        toks.numel() * (4 + tcfg.width * 4) + len(SCANNET20) * 64 * 4
+    tb, to = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_OPS * 1e3
+    print(f"[query text] CLIP ViT-B/16 text tower ({tcfg.layers} layers, "
+          f"width {tcfg.width}, {tcfg.context} tokens; seed 0) + Talk2DINO "
+          f"projection + phase 6's PCA on "
+          f"{len(SCANNET20)} categories x 7 templates = "
+          f"{toks.numel() // 77} sequences -> {tuple(emb.shape)}: "
+          f"{text_ms:.3f} ms (median of 10, CUDA events; host enqueue "
+          f"{text_enqueue:.3f} ms), {flops / 1e9:.1f} GFLOP, "
+          f"{flops / 1e9 / text_ms:.1f} TFLOP/s; bound {max(tb, to):.3f} ms "
+          f"by {'bytes' if tb >= to else 'operations'} (float32 "
+          f"{PEAK_F32_OPS / 1e12:.0f} TFLOP/s); '{QUERY_CATEGORY}' card vs "
+          f"CPU cosine {t_cos:.8f} max|err| {t_err:.3g} (|e| max "
+          f"{float(want.abs().max()):.3g}; gates {TEXT_COS} / {TEXT_ERR}) "
+          f"[{card}]")
+    print(f"[clocks] query text: {clk.summary()} [{card}]")
+    if not (t_cos >= TEXT_COS and t_err <= TEXT_ERR) or \
+            not bool(torch.isfinite(emb).all()):
+        fails.append(f"query text: card vs CPU cosine {t_cos} max|err| "
+                     f"{t_err}")
+
+    # the map
+    e = to_host(emb[SCANNET20.index(QUERY_CATEGORY)])
+    scene = out_dir / "scene"
+    t0 = time.perf_counter()
+    center = build_query_map(dev, e, scene)
+    ply = str(scene / "point_cloud" / "point_cloud.ply")
+    print(f"[query map] {QUERY_MAP['n_cloud']} cloud + "
+          f"{QUERY_MAP['n_object']} planted gaussians (ball r "
+          f"{QUERY_MAP['radius']} m at {center.tolist()}, LF = -e "
+          f"'{QUERY_CATEGORY}'), PLY {Path(ply).stat().st_size / 1e6:.1f} MB, "
+          f"{QUERY_MAP['n_cams']} cameras {QUERY_MAP['width']}x"
+          f"{QUERY_MAP['height']}, {time.perf_counter() - t0:.1f} s")
+
+    # the server
+    def encode_queries(qs):
+        return T2D.build_text_embedding(
+            qs, clip, proj, pca, tokens=np.stack([table[q] for q in qs]))
+    state = api.ServiceState(ply_path=ply, text_encoder=encode_queries,
+                             device=str(dev))
+    server = api.serve_stdlib(state, host="127.0.0.1", port=0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        health, _ = _http(url + "/health")
+        payloads = [{"text_emb": e.tolist(), "query": QUERY_CATEGORY},
+                    {"query": QUERY_CATEGORY},
+                    {"query": QUERY_CATEGORY, "top_k": 1, "ply_path": ply}]
+        replies, lat = [], []
+        for body in payloads:
+            reply, ms = _http(url + "/find_objects", body)
+            replies.append(reply)
+            lat.append(ms)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    g = state.gaussians()
+    direct = find_objects_in_gaussians(g["xyz"], g["lang_feat"], e)
+    direct_q = find_objects_in_gaussians(
+        g["xyz"], g["lang_feat"], to_host(encode_queries([QUERY_CATEGORY]))[0])
+    route = "sklearn DBSCAN" if _importable("sklearn") else \
+        "single cluster (no sklearn)"
+    errs = []
+    for body, reply in zip(payloads, replies):
+        objs = reply.get("objects") or [{}]
+        top = objs[0].get("center")
+        errs.append(float(np.linalg.norm(np.asarray(top) - center))
+                    if top else float("inf"))
+        want_objs = _objects_json(direct if "text_emb" in body else direct_q,
+                                  body.get("top_k", 5))
+        if sorted(reply) != ["objects", "query"] or \
+                reply["query"] != QUERY_CATEGORY or \
+                any(sorted(o) != ["center", "n_gaussians", "score"]
+                    for o in reply["objects"]):
+            fails.append(f"query server: contract broken: {sorted(reply)}")
+        if reply.get("objects") != want_objs:
+            fails.append("query server: reply differs from the direct "
+                         "find_objects_in_gaussians call")
+    print(f"[query server] serve_stdlib on 127.0.0.1:"
+          f"{server.server_address[1]}: /health {health}; 3 POST "
+          f"/find_objects (text_emb, query, query top_k=1 + ply_path) in "
+          f"{[round(x, 2) for x in lat]} ms, median "
+          f"{statistics.median(lat):.2f} ms (host clock; the first loads the "
+          f"PLY); top object {(replies[0]['objects'] or [None])[0]}"
+          f"; center error {[round(x, 4) for x in errs]} m (gate "
+          f"{SERVER_CENTER_M}); clustering route: {route} [{card}]")
+    if not health == {"status": "ok"}:
+        fails.append(f"query server: /health {health}")
+    if not all(x <= SERVER_CENTER_M for x in errs):
+        fails.append(f"query server: center errors {errs} m")
+
+    # the pixel-space search on the kernels, then the witness
+    kernels = dict(composite_fwd=cf.composite_forward,
+                   composite_bwd=cb.composite_backward,
+                   sort_keys=cs.sort_keys, sort_kv=cs.sort_kv)
+    split = dict(render=[], pamr=[])
+
+    def timed(name, fn):
+        def run(*a):
+            sync(dev)
+            t0 = time.perf_counter()
+            out = fn(*a)
+            sync(dev)
+            split[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+    render_fn, cams, raw = build_render_fn(str(scene), dev)
+    sync(dev)
+    with ClockSampler() as clk:
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = pixel_space_find_object(
+            timed("render", render_fn), cams, e,
+            pamr_fn=timed("pamr", pamr_fn), scene_points=raw["xyz"])
+        total_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: fn.launches for k, fn in kernels.items()}
+    # the witness composites every pair of a tile, as the kernels do
+    wit_fn, _, _ = build_render_fn(
+        str(scene), dev, RasterizeConfig(backend="torch", cuda_sort=False),
+        max_per_tile=1 << 16)
+    t0 = time.perf_counter()
+    wit = pixel_space_find_object(wit_fn, cams, e, pamr_fn=pamr_fn,
+                                  scene_points=raw["xyz"])
+    wit_s = time.perf_counter() - t0
+    n = len(cams)
+    render_ms = sum(split["render"]) / n
+    pamr_ms = sum(split["pamr"]) / n
+    c_err = float(np.linalg.norm(res.center - center)) \
+        if res.center is not None else float("inf")
+    w_err = float(np.linalg.norm(res.center - wit.center)) \
+        if res.center is not None and wit.center is not None \
+        else float("inf")
+    heat_err = float(np.abs(res.heats - wit.heats).max())
+    print(f"[query pixel] pixel_space_find_object over {n} cameras "
+          f"{QUERY_MAP['width']}x{QUERY_MAP['height']} through "
+          f"apps/find_objects.build_render_fn (\"cuda\" backend, f32 pair "
+          f"features, cuda_sort) + PAMR (dilations 1-24, 10 iterations), "
+          f"boxes labelled by "
+          f"{'cv2' if _importable('cv2') else 'scipy.ndimage (no cv2)'}: best "
+          f"frame {res.best_frame}, center "
+          f"{None if res.center is None else np.round(res.center, 4).tolist()}"
+          f" error {c_err:.4f} m (gate {PIXEL_CENTER_M}), "
+          f"{len(res.viewpoints)} viewpoints; ms a view: render "
+          f"{render_ms:.2f}, PAMR {pamr_ms:.2f}, the rest "
+          f"{total_ms / n - render_ms - pamr_ms:.2f} (cosine, host copies, "
+          f"heats, boxes; host clock with a synchronise); launches {launches}"
+          f"; witness (\"torch\" compositor, torch.sort, on the card, "
+          f"{wit_s:.1f} s): best frame {wit.best_frame}, center diff "
+          f"{w_err:.3g} m (gate {WITNESS_CENTER_M}), max heat diff "
+          f"{heat_err:.3g} [{card}]")
+    print(f"[clocks] query pixel: {clk.summary()} [{card}]")
+    if res.best_frame < 0 or res.best_frame != wit.best_frame:
+        fails.append(f"query pixel: best frame {res.best_frame} vs witness "
+                     f"{wit.best_frame}")
+    if not c_err <= PIXEL_CENTER_M:
+        fails.append(f"query pixel: center {c_err} m from the planted one")
+    if not w_err <= WITNESS_CENTER_M:
+        fails.append(f"query pixel: center {w_err} m from the witness's")
+    for k in ("composite_fwd", "sort_keys", "sort_kv"):
+        if launches[k] == 0:
+            fails.append(f"query pixel: {k} launched no time")
+
+    # PAMR, the image query and LPIPS on the best view, card vs CPU
+    st, _ = load_map(ply, dev)
+    render = make_renderer(st)
+
+    def view(k):
+        c = cams[k]
+        R = np.asarray(c["rotation"], np.float32).T
+        return render(R, -(R @ np.asarray(c["position"], np.float32)),
+                      c["width"], c["height"], c["fx"], c["fy"])
+    best = max(res.best_frame, 0)
+    cam = cams[best]
+    out = view(best)
+    rgb, lf = out.color.clamp(0, 1), out.lang_feat
+    cos = view_cosine(lf, e / np.linalg.norm(e))
+    p_card = pamr(rgb, cos[..., None])[..., 0].cpu()
+    p_cpu = pamr(rgb.cpu(), cos.cpu()[..., None])[..., 0]
+    p_err = float((p_card - p_cpu).abs().max())
+
+    vcfg = CV.ClipVisionConfig()
+    vis = CV.init_params(vcfg, torch.Generator().manual_seed(0), dev)
+    vis_cpu = CV.init_params(vcfg, torch.Generator().manual_seed(0), "cpu")
+    img_card = T2D.build_image_embedding(vis, proj, pca, rgb)
+    proj_cpu = T2D.init_projection(torch.Generator().manual_seed(0),
+                                   device="cpu")
+    img_cpu = T2D.build_image_embedding(vis_cpu, proj_cpu, cpu_pca,
+                                        rgb.cpu()).double()
+    i_cos = float(torch.nn.functional.cosine_similarity(
+        img_card.cpu().double(), img_cpu, dim=0))
+    i_err = float((img_card.cpu().double() - img_cpu).abs().max())
+    img_ms, _ = per_call_ms(
+        lambda: T2D.build_image_embedding(vis, proj, pca, rgb), 10, warmup=3)
+    v_flops = clip_vision_flops(vcfg)
+
+    out2 = view((best + 1) % n)
+    target = out2.color.clamp(0, 1)
+    tree = LP.init_params(np.random.default_rng(0))
+    lp_card = LP.params_from_numpy(tree, dev)
+    d_card = float(LP.lpips(lp_card, rgb, target))
+    d_cpu = float(LP.lpips(LP.params_from_numpy(tree, "cpu"), rgb.cpu(),
+                           target.cpu()))
+    lp_ms, _ = per_call_ms(lambda: LP.lpips(lp_card, rgb, target), 10,
+                           warmup=3)
+    l_flops = lpips_flops(cam["height"], cam["width"])
+    print(f"[query image] view {best}: {int(out.num_rendered)} pairs, "
+          f"overflow {int(out.overflow_pairs)} (view {(best + 1) % n}: "
+          f"{int(out2.overflow_pairs)}); PAMR card vs CPU max|err| "
+          f"{p_err:.3g} (gate {PAMR_ERR}); CLIP ViT-B/16 vision (seed 0, 224^2"
+          f", 197 tokens) + projection + PCA on that view: card vs CPU cosine "
+          f"{i_cos:.8f} max|err| {i_err:.3g}, {img_ms:.3f} ms (CUDA events, "
+          f"from the rendered view on the card), {v_flops / 1e9:.1f} GFLOP, "
+          f"bound {v_flops / PEAK_F32_OPS * 1e3:.3f} ms (float32); "
+          f"LPIPS(alex) seeded, view {best} vs view "
+          f"{(best + 1) % n} at {cam['width']}x"
+          f"{cam['height']}: card {d_card:.6f} CPU {d_cpu:.6f}, {lp_ms:.3f} "
+          f"ms, {l_flops / 1e9:.1f} GFLOP [{card}]")
+    if not p_err <= PAMR_ERR:
+        fails.append(f"query image: PAMR card vs CPU max|err| {p_err}")
+    if not (i_cos >= TEXT_COS and i_err <= TEXT_ERR):
+        fails.append(f"query image: card vs CPU cosine {i_cos} max|err| "
+                     f"{i_err}")
+    if not (d_card > 0 and abs(d_card - d_cpu) <= LPIPS_RTOL * abs(d_cpu)):
+        fails.append(f"query image: LPIPS card {d_card} CPU {d_cpu}")
+    return launches
+
+
 def build_phase():
     from legslam_torch import _build
     names = ("composite_fwd", "composite_bwd", "sort")
@@ -1370,8 +1842,16 @@ def main() -> int:
     phase_s["encoder"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     system_phase(dev, card, fails, str(out_dir) + "_system", ds, frames, enc)
+    pca = enc.pca_params
     del enc, ds, frames
+    torch.cuda.empty_cache()
     phase_s["system"] = time.perf_counter() - t_phase
+
+    # phase 7: the query and serving stack
+    t_phase = time.perf_counter()
+    query_launches = query_phase(dev, card, fails,
+                                 Path(str(out_dir) + "_query"), pca)
+    phase_s["query"] = time.perf_counter() - t_phase
     print(f"[phases] seconds {({k: round(v, 1) for k, v in phase_s.items()})}"
           f", total {sum(phase_s.values()):.1f} [{card}]")
 
@@ -1382,7 +1862,9 @@ def main() -> int:
             ("bwd", "composite_bwd", "legslam_torch/csrc/composite_bwd.cu",
              "legslam_tpu/ops/pallas/composite_bwd.py:96")):
         rows.append(dict(name=name, route="cuda", source=src, replaces=tpu,
-                         launches=launches[k], max_abs_err=errs[k],
+                         launches=launches[k],
+                         query_launches=query_launches[name],
+                         max_abs_err=errs[k],
                          ms=times[k], plain_ms=times[f"{k}_plain"],
                          bound_ms=b[k]["bound_ms"],
                          bound_by=b[k]["bound_by"], library_ms=None))
@@ -1391,6 +1873,7 @@ def main() -> int:
         rows.append(dict(name=name, route="cuda",
                          source="legslam_torch/csrc/sort.cu", replaces=tpu,
                          launches=mapper_launches[name],
+                         query_launches=query_launches[name],
                          max_abs_err=sort_errs[name], ms=sort_times[name],
                          plain_ms=sort_times[f"{name}_plain"],
                          bound_ms=sort_bnd[name]["bound_ms"],

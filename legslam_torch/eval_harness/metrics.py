@@ -6,8 +6,7 @@ A numpy copy of legslam_tpu/eval_harness/metrics.py. Parity references:
   - confusion matrix -> per-class IoU / accuracy: eval/metric_utils.py:96-197
   - label sets SCANNET20 / COCOMAP: eval/metric_utils.py:9-51
   - PSNR/SSIM come from ops/losses.py (same math as loss_utils.h)
-
-`lpips_alex` raises until models/lpips.py is ported (ROADMAP.md).
+  - LPIPS(alex) through models/lpips.py: eval/replica_test.py:131-158
 """
 from __future__ import annotations
 
@@ -142,9 +141,21 @@ def segment_prediction(lf_image: np.ndarray, text_embs: np.ndarray,
 
 
 def lpips_alex(img1: np.ndarray, img2: np.ndarray,
-               weights_path: Optional[str] = None) -> float:
-    """LPIPS(alex) like eval/replica_test.py:131-158: needs the AlexNet-
-    LPIPS model of models/lpips.py, which is not ported yet."""
-    raise NotImplementedError(
-        "lpips_alex: models/lpips.py is not ported to legslam_torch yet; "
-        "see ROADMAP.md")
+               weights_path: Optional[str] = None,
+               device: str = "cuda") -> float:
+    """LPIPS(alex) like eval/replica_test.py:131-158, on `device`.
+
+    Pass `weights_path` = an lpips_alex.npz produced by
+    tools/convert_weights.py --lpips-alex (AlexNet-LPIPS, models/lpips.py).
+    The JAX module falls back to the `lpips` torch package without one;
+    the port does not import it, so it raises with the same guidance (the
+    offline image ships no pretrained weights)."""
+    if not weights_path:
+        raise RuntimeError(
+            "LPIPS needs converted weights (tools/convert_weights.py "
+            "--lpips-alex -> pass weights_path); legslam_torch does not use "
+            "the `lpips` package.")
+    from legslam_torch.models import lpips as L
+    params = L.load_params(weights_path, device)
+    return float(L.lpips(params, np.asarray(img1, np.float32),
+                         np.asarray(img2, np.float32)))

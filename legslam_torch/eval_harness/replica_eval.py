@@ -8,9 +8,10 @@ keyframe and score PSNR / SSIM / depth-L1(cm) / ATE-RMSE, writing
 `eval_result_<EXP>.log` (eval/replica_test.py:131-240,317-337) in the JAX
 module's format.
 
-Not ported yet (they raise, see ROADMAP.md): `frontend="visual"` (the
-KLT+RANSAC tracker, slam/tracking.py) and `lpips_weights`
-(models/lpips.py).
+With `lpips_weights` (an lpips_alex.npz) each keyframe is also scored by
+LPIPS(alex) (models/lpips.py) on the mapper's device. Not ported yet (it
+raises, see ROADMAP.md): `frontend="visual"` (the KLT+RANSAC tracker,
+slam/tracking.py).
 """
 from __future__ import annotations
 
@@ -56,10 +57,6 @@ def run_scene(scene_dir: str, out_dir: str,
         raise NotImplementedError(
             f"frontend={frontend!r}: slam/tracking.py is not ported to "
             "legslam_torch yet; see ROADMAP.md")
-    if lpips_weights:
-        raise NotImplementedError(
-            "lpips_weights: models/lpips.py is not ported to legslam_torch "
-            "yet; see ROADMAP.md")
     ds = open_dataset(scene_dir)
     fe = TrajectoryFrontend(ds.intrinsics, kf_stride=kf_stride,
                             **(frontend_kwargs or {}))
@@ -96,7 +93,11 @@ def run_scene(scene_dir: str, out_dir: str,
         mapper.train_iteration()
 
     # per-keyframe photometric metrics
-    psnrs, ssims, depth_l1 = [], [], []
+    lpips_params = None
+    if lpips_weights:
+        from legslam_torch.models import lpips as L
+        lpips_params = L.load_params(lpips_weights, mapper.device)
+    psnrs, ssims, depth_l1, lpipses = [], [], [], []
     for fid, kf in sorted(mapper.keyframes.items()):
         out = mapper.render_from_pose(kf.R, kf.t, kf.views[-1].width,
                                       kf.views[-1].height)
@@ -106,6 +107,8 @@ def run_scene(scene_dir: str, out_dir: str,
         ssims.append(float(losses.ssim(pred, gt)))
         depth_l1.append(metrics.depth_l1_cm(
             out.depth.cpu().numpy(), kf.gt_depth[-1].cpu().numpy()))
+        if lpips_params is not None:
+            lpipses.append(float(L.lpips(lpips_params, pred, gt)))
 
     ate = metrics.ate_rmse(np.asarray(est_centers), np.asarray(gt_centers)) \
         if len(est_centers) >= 3 else dict(rmse=0.0, mean=0.0)
@@ -118,6 +121,8 @@ def run_scene(scene_dir: str, out_dir: str,
         depth_l1_cm=float(np.mean(depth_l1)),
         ate_rmse=ate["rmse"], ate_mean=ate["mean"],
         n_gaussians=int(mapper.state.num_valid()), output=base)
+    if lpipses:
+        result["lpips"] = float(np.mean(lpipses))
     if return_mapper:
         result["_mapper"] = mapper
     return result

@@ -78,17 +78,30 @@ def load_encoder(weights_dir: str, dtype: torch.dtype = torch.bfloat16,
     return LanguageFeaturesEncoder(dino, pca, cfg, dtype=dtype, device=device)
 
 
-def load_text_pipeline(weights_dir: str):
-    """(clip_params, projection, pca): needs models/clip_text.py and
-    models/talk2dino.py, which are not ported yet."""
-    raise NotImplementedError(
-        "load_text_pipeline: the CLIP text / Talk2DINO query stack is not "
-        "ported to legslam_torch yet; see ROADMAP.md")
+def load_text_pipeline(weights_dir: str,
+                       device: str | torch.device = "cuda"):
+    """(clip_params, projection, pca) on `device` from a converted weights
+    dir: <dir>/clip_text.npz, talk2dino_proj.npz and pca.npz."""
+    from legslam_torch.models import clip_text as CT
+    from legslam_torch.models import pca as PCA
+    from legslam_torch.models import talk2dino as T2D
+
+    clip_params = CT.params_from_numpy(
+        load_params(os.path.join(weights_dir, "clip_text.npz")), device)
+    proj = T2D.params_from_numpy(T2D.ProjectionParams(**load_params(
+        os.path.join(weights_dir, "talk2dino_proj.npz"))), device)
+    pca = PCA.load(os.path.join(weights_dir, "pca.npz"), device)
+    return clip_params, proj, pca
 
 
-def load_image_pipeline(weights_dir: str):
-    """(clip_vision_params, projection, pca): needs models/clip_vision.py,
-    which is not ported yet."""
-    raise NotImplementedError(
-        "load_image_pipeline: the CLIP vision query stack is not ported to "
-        "legslam_torch yet; see ROADMAP.md")
+def load_image_pipeline(weights_dir: str,
+                        device: str | torch.device = "cuda"):
+    """(clip_vision_params, projection, pca) on `device` for image-as-query
+    (talk2dino.build_image_embedding; eval/utils.py:113-171 route): the
+    text pipeline's projection and PCA, and <dir>/clip_vision.npz."""
+    from legslam_torch.models import clip_vision as CV
+
+    _, proj, pca = load_text_pipeline(weights_dir, device)
+    vision = CV.params_from_numpy(
+        load_params(os.path.join(weights_dir, "clip_vision.npz")), device)
+    return vision, proj, pca

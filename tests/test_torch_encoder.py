@@ -182,6 +182,23 @@ def test_weight_files_load_in_both(weights, tmp_path):
 
 
 def test_query_pipelines_raise(tmp_path):
-    for fn in (TW.load_text_pipeline, TW.load_image_pipeline):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(str(tmp_path))
+    """The query pipelines load a JAX-written weights directory (they
+    raised before the CLIP stack was ported): every tensor equals JAX's
+    bit for bit. What still raises is the tokenizer: a text embedding
+    without token ids (no BPE vocabulary in the repository)."""
+    from legslam_torch.models import talk2dino as TT
+    from tests.test_torch_talk2dino import write_jax_weights_dir
+    wdir = str(tmp_path / "weights")
+    write_jax_weights_dir(wdir)
+    for tfn, jfn in ((TW.load_text_pipeline, JW.load_text_pipeline),
+                     (TW.load_image_pipeline, JW.load_image_pipeline)):
+        got = tfn(wdir, device="cpu")
+        want = jfn(wdir)
+        flat_t = jax.tree.leaves(jax.tree.map(lambda t: t.numpy(), got))
+        flat_j = jax.tree.leaves(want)
+        assert len(flat_t) == len(flat_j) > 0
+        for a, b in zip(flat_t, flat_j):
+            assert np.array_equal(a, np.asarray(b))
+    clip, proj, pca = TW.load_text_pipeline(wdir, device="cpu")
+    with pytest.raises(RuntimeError, match="token ids"):
+        TT.build_text_embedding(["chair"], clip, proj, pca)

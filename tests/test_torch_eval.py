@@ -78,10 +78,23 @@ def test_metrics_match_jax(name):
             np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
 
 
-def test_lpips_raises_until_ported():
-    img = np.zeros((8, 8, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.lpips_alex(img, img)
+def test_lpips_raises_until_ported(tmp_path):
+    """lpips_alex with converted weights (an lpips_alex.npz) equals the JAX
+    package's within rtol 1e-4 (it raised before models/lpips.py was
+    ported). Without weights it still raises: JAX falls back to the
+    `lpips` package there, which the port does not import."""
+    from legslam_tpu.models import lpips as JL
+    path = str(tmp_path / "lpips_alex.npz")
+    np.savez(path, **JL.init_params(np.random.default_rng(8)))
+    rng = np.random.default_rng(9)
+    a = rng.uniform(size=(64, 64, 3)).astype(np.float32)
+    b = rng.uniform(size=(64, 64, 3)).astype(np.float32)
+    got = TM.lpips_alex(a, b, weights_path=path, device="cpu")
+    assert isinstance(got, float) and got > 0
+    assert got == pytest.approx(JM.lpips_alex(a, b, weights_path=path),
+                                rel=1e-4)
+    with pytest.raises(RuntimeError, match="weights_path"):
+        TM.lpips_alex(a, a)
 
 
 # --- checkpoints ---------------------------------------------------------

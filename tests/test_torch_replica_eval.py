@@ -7,6 +7,7 @@ import json
 import os
 
 import numpy as np
+import pytest
 
 from tests.test_torch_app import SMALL, _small_weights
 import torch
@@ -30,7 +31,10 @@ def test_replica_eval_matches_jax(replica_scene, tmp_path,  # noqa: F811
     """evaluate_scenes / run_scene with the same small encoder in both
     packages on the tiny scene: the keyframes' LF grids agree at the
     encoder's tolerance (atol 2e-4 / rtol 1e-3, tests/test_torch_encoder.py)
-    and the eval_result files have the same lines, keys and format."""
+    and the eval_result files have the same lines, keys and format. With
+    the same LPIPS(alex) weights (`lpips_weights`), both score each
+    keyframe, and the mean LPIPS agrees within rtol 1e-4 (measured 4e-7:
+    the two maps train apart by rounding only)."""
     import jax.numpy as jnp
 
     from legslam_torch import config as TCfg
@@ -43,7 +47,10 @@ def test_replica_eval_matches_jax(replica_scene, tmp_path,  # noqa: F811
     from legslam_tpu.models import pca as JPCA
     from legslam_tpu.models import weights_io as JW
     from legslam_tpu.models.encoder import LanguageFeaturesEncoder
+    from legslam_tpu.models import lpips as JL
     wdir = _small_weights(str(tmp_path / "weights"))
+    lpips_path = str(tmp_path / "lpips_alex.npz")
+    np.savez(lpips_path, **JL.init_params(np.random.default_rng(3)))
     tenc = TW.load_encoder(wdir, device="cpu", cfg=TD.DinoV2Config(**SMALL))
     jenc = LanguageFeaturesEncoder(
         JW.load_params(os.path.join(wdir, "dinov2.npz")),
@@ -60,7 +67,7 @@ def test_replica_eval_matches_jax(replica_scene, tmp_path,  # noqa: F811
         res = mod.evaluate_scenes(
             str(replica_scene.parent), str(out), scenes=(replica_scene.name,),
             exp_name="tiny", kf_stride=2, capacity=4096, max_frames=6,
-            encoder=enc,
+            encoder=enc, lpips_weights=lpips_path,
             opt=cfgmod.OptimizationParams(densify_from_iter=1000,
                                           densification_interval=5),
             mp=cfgmod.MapperParams(min_num_initial_map_kfs=2,
@@ -87,3 +94,5 @@ def test_replica_eval_matches_jax(replica_scene, tmp_path,  # noqa: F811
             assert ja["scene"] == jb["scene"] and ja["frames"] == 6
             assert np.isfinite(ja["psnr"]) and ja["n_gaussians"] > 0
     assert [r["scene"] for r in tres] == [r["scene"] for r in jres]
+    assert tres[0]["lpips"] > 0
+    assert tres[0]["lpips"] == pytest.approx(jres[0]["lpips"], rel=1e-4)
