@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Build legslam_torch's CUDA kernels and drive the port's mapping step, its
-online mapper, its language-feature encoder, its RGB-D system loop and its
-open-vocabulary query and serving stack on one NVIDIA H100.
+online mapper, its language-feature encoder, its RGB-D system loop, its
+open-vocabulary query and serving stack, and its visual tracking frontend
+(RGB-D, stereo with SGM, monocular) with the live viewer on one NVIDIA
+H100.
 
     python3 chip_smoke.py
 
@@ -68,14 +70,29 @@ Phases (each prints one or more lines; any failure exits non-zero):
      both sort kernels), against the "torch" compositor on the card;
      [query image] PAMR, the CLIP ViT-B/16 vision query and LPIPS(alex),
      card against CPU;
-  8. a {"kernels": [...]} line, then the card line, then as the last line
+  8. the visual tracking frontend (see visual_phase, viewer_phase,
+     stereo_phase, mono_phase), the tracker on its native route: [visual]
+     the RGB-D TrackingFrontend alone over a 40-frame 1200x680
+     surface-only room of 40k gaussians with GT hidden (route, host ms a
+     frame, ATE gates), then the same frames through process_frame with
+     phase 6's encoder and phase 5's mapper settings on the tracker's own
+     poses (frames/s, the host ms a frame by part, the local-BA / loop /
+     scale operations applied and the keyframes culled, the kernels'
+     launches, the PSNR and gt_lf gates);
+     [viewer] the live viewer on that mapper and tracker (/state, POST
+     /params, /render against render_from_pose, the /slam_frame
+     keypoints); [stereo] SGM at 752x480 with 128 disparities, card
+     against CPU, timed, then a 10-frame rectified pair sequence through
+     the stereo tracker and a stereo mapper; [mono] 24 frames at 640x480
+     through the monocular tracker and a monocular mapper;
+  9. a {"kernels": [...]} line, then the card line, then as the last line
      {"ok": true, "device": {...}}.
 
 Each kernel's `launches` is its count over the path that runs it: the
 compositing kernels' over phase 4's 24 steps, the sort kernels' over
 phase 5's training loop (phase 4 runs cuda_sort at its default and
 counts their launches too); `query_launches` is its count over phase 7's
-pixel-space search.
+pixel-space search, `visual_launches` over phase 8's [visual] system loop.
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result. Imports nothing of JAX.
 """
@@ -84,6 +101,7 @@ from __future__ import annotations
 import hashlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1676,6 +1694,556 @@ def query_phase(dev, card, fails, out_dir: Path, pca):
     return launches
 
 
+# --- phase 8: the visual tracking frontend, SGM stereo, mono, the viewer -----
+
+# the [visual] room: Replica's width and the surface-only room of
+# bench.py:173-176 (its 40k gaussians, n_points // 5 of the 200k-point
+# store), with motion KLT can follow (1.35 deg a frame). At 200k the
+# tracker loses frames 1-12 of this orbit (every frame after the bootstrap
+# keyframe until it re-anchors) on every render path tried and at a third
+# of the motion, and none at 10k, 20k or 40k (tools/probe_visual_room.py,
+# PERF.md §4); the cause is not diagnosed.
+VISUAL_ROOM = dict(n_frames=40, width=1200, height=680, n_gaussians=40_000,
+                   seed=3, clutter_ratio=0.0, revolutions=0.15)
+# the [stereo] pair: EuRoC's 752x480 and its 128 disparities
+STEREO_SHAPE = (480, 752)
+STEREO_DISP = 128
+# the [stereo] and [mono] sequences: the scenes of
+# tests/test_tracking_stereo.py and tests/test_tracking_mono.py at
+# EuRoC's and VGA's sizes. The stereo baseline puts the room's walls
+# (z 4-8 m) at 38-75 px of disparity, inside SGM's [8, 128) window.
+STEREO_ROOM = dict(n_frames=10, width=752, height=480, n_gaussians=7000,
+                   seed=11, clutter_ratio=0.0, revolutions=0.15)
+STEREO_BASELINE = 0.5
+MONO_ROOM = dict(n_frames=24, width=640, height=480, n_gaussians=7000,
+                 seed=0, clutter_ratio=0.0, revolutions=0.15)
+# gates (tests/test_tracking.py:79-90, test_tracking_mono.py:96-110)
+VISUAL_ATE_SIM3 = 0.05
+VISUAL_ATE_RAW = 0.15
+MONO_ATE_SIM3 = 0.08
+STEREO_SUBPIX_TOL = 1e-4
+
+
+def hide_gt(frame, **changes):
+    import dataclasses
+    return dataclasses.replace(frame, c2w=None, **changes)
+
+
+def traj_ate(fe, frames) -> tuple[float, float]:
+    """(Sim(3)-aligned, unaligned) ATE RMSE of the tracker's trajectory
+    against the frames' GT camera centers."""
+    from legslam_torch.eval_harness.metrics import ate_rmse
+    fids, traj = fe.trajectory()
+    gt = np.stack([frames[int(i)].c2w for i in fids])[:, :3, 3]
+    return (ate_rmse(traj[:, :3, 3], gt)["rmse"],
+            ate_rmse(traj[:, :3, 3], gt, with_scale=False)["rmse"])
+
+
+def pct(xs, q) -> float:
+    p = sorted(xs)
+    return p[int(q * (len(p) - 1))]
+
+
+class OpCounter:
+    """Counts the operations a mapper applies, by kind, and the keyframes
+    its culling drops."""
+
+    def __init__(self, mapper):
+        self.kinds, self.culled = {}, 0
+        handle, cull = mapper.handle_operation, mapper.cull_keyframes
+
+        def counted_handle(op):
+            self.kinds[op.kind.name] = self.kinds.get(op.kind.name, 0) + 1
+            return handle(op)
+
+        def counted_cull():
+            n = len(mapper.keyframes)
+            cull()
+            self.culled += n - len(mapper.keyframes)
+        mapper.handle_operation = counted_handle
+        mapper.cull_keyframes = counted_cull
+
+    def applied(self) -> dict:
+        return {k: self.kinds.get(k, 0)
+                for k in ("LOCAL_BA", "LOOP_CLOSE_BA", "SCALE_REFINEMENT")}
+
+
+class HostTimes:
+    """Host ms of the calls of wrapped methods, summed per frame: set
+    `frame` before each frame's work, and back to None after the last
+    (calls outside a frame are not counted)."""
+
+    def __init__(self):
+        self.frame, self.ms = None, {}
+
+    def wrap(self, obj, name):
+        fn = getattr(obj, name)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                if self.frame is not None:
+                    per = self.ms.setdefault(name, {})
+                    per[self.frame] = per.get(self.frame, 0.0) + \
+                        (time.perf_counter() - t0) * 1e3
+        setattr(obj, name, timed)
+
+    def per_frame(self, name, n) -> list[float]:
+        per = self.ms.get(name, {})
+        return [per.get(i, 0.0) for i in range(n)]
+
+
+def visual_phase(dev, card, fails, out_dir, enc):
+    """Phase 8 [visual]: the port's TrackingFrontend (RGB-D) on the
+    40-frame 1200x680 surface-only room with GT hidden, alone (route, host
+    ms a frame, the ATE gates of tests/test_tracking.py), then the same
+    frames through apps/replica_rgbd.process_frame with phase 6's encoder
+    and phase 5's mapper settings: the mapper's poses are the tracker's
+    own, so local BA, loop-closure and culling operations reach the store
+    surgery. Returns (frontend, mapper, launches)."""
+    from legslam_torch.apps.replica_rgbd import process_frame
+    from legslam_torch.config import (MapperParams, OptimizationParams,
+                                      RasterizeConfig)
+    from legslam_torch.data.synthetic import SyntheticDataset
+    from legslam_torch.mapper.mapper import GaussianMapper
+    from legslam_torch.models import gaussians as G
+    from legslam_torch.ops.cuda import composite as cf
+    from legslam_torch.ops.cuda import composite_bwd as cb
+    from legslam_torch.ops.cuda import sort as cs
+    from legslam_torch.slam import tracking as T
+    secs = {}
+    t0 = time.perf_counter()
+    ds = SyntheticDataset(**VISUAL_ROOM, device=dev)
+    frames = [ds.read(i) for i in range(len(ds))]
+    sync(dev)
+    secs["render"] = time.perf_counter() - t0
+
+    # the tracker alone
+    t0 = time.perf_counter()
+    route = "native" if T._use_native() else "cv2"
+    if route == "native":
+        from legslam_torch.slam import native
+        route += f" ({native.library_path().name})"
+    fe = T.TrackingFrontend(ds.intrinsics, ransac_thresh=0.1, device=dev)
+    track_ms = []
+    for f in frames:
+        ta = time.perf_counter()
+        fe.track(hide_gt(f))
+        track_ms.append((time.perf_counter() - ta) * 1e3)
+    ate_s, ate_r = traj_ate(fe, frames)
+    secs["tracker"] = time.perf_counter() - t0
+    print(f"[visual] tracker alone, rgbd, {len(frames)} frames "
+          f"{ds.intrinsics['width']}x{ds.intrinsics['height']} of "
+          f"{VISUAL_ROOM['n_gaussians']} gaussians (GT hidden), route "
+          f"{route}: {fe.num_keyframes} keyframes live of "
+          f"{fe.n_keyframes_created} created, lost frames {fe.lost_frames}, "
+          f"loop closures {fe.n_loop_closures}; ATE RMSE Sim(3)-aligned "
+          f"{ate_s:.4f} m (gate < {VISUAL_ATE_SIM3}), unaligned {ate_r:.4f} m"
+          f" (gate < {VISUAL_ATE_RAW}); host ms a frame median "
+          f"{statistics.median(track_ms):.2f} p90 {pct(track_ms, 0.9):.2f} "
+          f"[{card}]")
+    if fe.lost_frames != 0:
+        fails.append(f"visual: tracker lost {fe.lost_frames} frames")
+    if fe.num_keyframes < 3:
+        fails.append(f"visual: {fe.num_keyframes} keyframes < 3")
+    if not ate_s < VISUAL_ATE_SIM3:
+        fails.append(f"visual: Sim(3) ATE {ate_s:.4f} >= {VISUAL_ATE_SIM3}")
+    if not ate_r < VISUAL_ATE_RAW:
+        fails.append(f"visual: unaligned ATE {ate_r:.4f} >= {VISUAL_ATE_RAW}")
+
+    # the system loop on the tracker's poses
+    t0 = time.perf_counter()
+    fe = T.TrackingFrontend(ds.intrinsics, ransac_thresh=0.1, device=dev)
+    opt = OptimizationParams(densify_from_iter=40, densification_interval=50)
+    mapper = GaussianMapper(
+        fe.queue, ds.intrinsics, opt=opt,
+        mp=MapperParams(min_num_initial_map_kfs=4),
+        cfg=RasterizeConfig(backend="cuda", mm_dtype="bfloat16",
+                            cuda_sort=True),
+        capacity=1 << 18, result_dir=out_dir, max_per_tile=2048,
+        binning_refresh_interval=8, device=dev)
+    init = []
+    initialize = mapper.initialize_map
+
+    def initialize_and_copy():
+        initialize()
+        init.append(G.copy_state(mapper.state))
+    mapper.initialize_map = initialize_and_copy
+    ops = OpCounter(mapper)
+    host = HostTimes()
+    host.wrap(fe, "track")
+    host.wrap(mapper, "drain_operations")
+    host.wrap(mapper, "train_iteration")
+    timed = TimedEncoder(enc)
+    kernels = dict(composite_fwd=cf.composite_forward,
+                   composite_bwd=cb.composite_backward,
+                   sort_keys=cs.sort_keys, sort_kv=cs.sort_kv)
+    lfs, frame_ms = {}, []
+    sync(dev)
+    with ClockSampler() as clk:
+        for fn in kernels.values():
+            fn.launches = 0
+        t_start = time.perf_counter()
+        for f in frames:
+            host.frame = f.index
+            ta = time.perf_counter()
+            lfs[f.index] = process_frame(
+                hide_gt(f), fe, mapper, timed,
+                iters_per_frame=SYSTEM_ITERS_PER_FRAME)
+            sync(dev)
+            frame_ms.append((time.perf_counter() - ta) * 1e3)
+        total_s = time.perf_counter() - t_start
+        host.frame = None
+        mapper.drain_operations(limit=10_000)
+        for _ in range(int(0.8 * opt.densification_interval)):
+            mapper.train_iteration()
+        sync(dev)
+        launches = {k: fn.launches for k, fn in kernels.items()}
+    secs["system"] = time.perf_counter() - t0
+    enc_ms = [a.elapsed_time(b) for a, b in timed.events]
+    same = [torch.equal(kf.gt_lf, lfs[fid])
+            for fid, kf in mapper.keyframes.items()]
+    psnr = keyframe_psnr(mapper)
+    psnr_init = keyframe_psnr(mapper, init[0]) if init else float("nan")
+    ate_s, ate_r = traj_ate(fe, frames)
+    split = {k: host.per_frame(k, len(frames))
+             for k in ("track", "drain_operations", "train_iteration")}
+    split["rest"] = [t - sum(v[i] for v in split.values())
+                     for i, t in enumerate(frame_ms)]
+    sys_track_ms = split["track"]
+    by_part = {k: f"{statistics.median(v):.2f} ({statistics.mean(v):.2f})"
+               for k, v in split.items()}
+    secs = {k: round(v, 1) for k, v in secs.items()}
+    print(f"[visual] system loop, {len(frames)} frames through "
+          f"apps/replica_rgbd.process_frame on the tracker's poses (GT "
+          f"hidden), encoder on every frame, {SYSTEM_ITERS_PER_FRAME} "
+          f"iterations a frame once mapping: {len(frames) / total_s:.3f} "
+          f"frames/s, ms a frame median {statistics.median(frame_ms):.2f} "
+          f"p90 {pct(frame_ms, 0.9):.2f}; tracker ms a frame median "
+          f"{statistics.median(sys_track_ms):.2f} p90 "
+          f"{pct(sys_track_ms, 0.9):.2f}; encoder ms a frame median "
+          f"{statistics.median(enc_ms):.3f} (CUDA events); host ms a frame "
+          f"by part, median (mean): {by_part} (rest: the encoder's "
+          f"enqueue, initialize_map and the wait for "
+          f"the card at the frame's end); operations "
+          f"applied {ops.applied()}, keyframes culled {ops.culled}, tracker "
+          f"loop closures {fe.n_loop_closures}; {len(mapper.keyframes)} "
+          f"keyframes, {mapper.iteration} iterations, num_valid "
+          f"{int(mapper.state.num_valid())}; launches {launches}; keyframe "
+          f"gt_lf is the encoder's tensor: {sum(same)}/{len(same)}; "
+          f"keyframe PSNR {psnr:.2f} dB (initial map {psnr_init:.2f} dB, "
+          f"gate >= initial + 3); ATE Sim(3) {ate_s:.4f} m, unaligned "
+          f"{ate_r:.4f} m; seconds {secs} [{card}]")
+    print(f"[clocks] visual system loop: {clk.summary()} [{card}]")
+    for k, v in launches.items():
+        if v == 0:
+            fails.append(f"visual: {k} launched no time")
+    if ops.kinds.get("LOCAL_BA", 0) < 1:
+        fails.append("visual: no LOCAL_BA operation applied")
+    if not psnr >= psnr_init + 3.0:
+        fails.append(f"visual: PSNR {psnr:.2f} not 3 dB above the initial "
+                     f"map's {psnr_init:.2f}")
+    if not same or not all(same):
+        fails.append(f"visual: {len(same) - sum(same)} of {len(same)} "
+                     "keyframes' gt_lf differ from the encoder's output")
+    return fe, mapper, launches
+
+
+def textured_pair(shape, disparity, seed=0):
+    """A seeded textured left image (smooth noise, bilinear from a coarse
+    grid) and its right image shifted by a constant disparity."""
+    h, w = shape
+    rng = np.random.default_rng(seed)
+    base = torch.as_tensor(rng.uniform(size=(1, 1, h // 8 + 2, w // 8 + 2)),
+                           dtype=torch.float32)
+    left = torch.nn.functional.interpolate(
+        base, size=(h + 16, w + 16), mode="bilinear",
+        align_corners=False)[0, 0, 8:8 + h, 8:8 + w].numpy()
+    left = (left - left.min()) / (left.max() - left.min())
+    right = np.roll(left, -disparity, axis=1)
+    return left.astype(np.float32), right.astype(np.float32)
+
+
+def right_view(color, depth, fx, baseline):
+    """Inverse-warp a rectified right view, right(u) = left(u + fx*b/z),
+    with the left depth as the sampling proxy
+    (tests/test_tracking_stereo.py:21-35)."""
+    h, w, _ = color.shape
+    us = np.arange(w, dtype=np.float32)[None, :].repeat(h, 0)
+    z = np.where(depth > 1e-3, depth, 1e6)
+    src = np.clip(us + fx * baseline / z, 0, w - 1)
+    lo = np.floor(src).astype(np.int32)
+    hi = np.minimum(lo + 1, w - 1)
+    f = (src - lo)[..., None]
+    rows = np.arange(h)[:, None]
+    return (color[rows, lo] * (1 - f) + color[rows, hi] * f).astype(
+        np.float32)
+
+
+def stereo_phase(dev, card, fails, out_dir):
+    """Phase 8 [stereo]: SGM (ops/stereo.py) at 752x480 with 128
+    disparities on a seeded textured pair, card against CPU (the
+    aggregated costs are integers: equal everywhere, so are the integer
+    disparities; the subpixel term within STEREO_SUBPIX_TOL), its ms a
+    frame by CUDA events and the host's enqueue time; then a 10-frame
+    rectified pair sequence through the stereo tracker (SGM on the card)
+    and a mapper with sensor_type="stereo", whose inactive-geometry
+    densify runs SGM on each keyframe's pair."""
+    from legslam_torch.config import MapperParams, RasterizeConfig
+    from legslam_torch.data.synthetic import SyntheticDataset
+    from legslam_torch.mapper.mapper import GaussianMapper
+    from legslam_torch.ops import stereo as S
+    from legslam_torch.slam import tracking as T
+    t0 = time.perf_counter()
+    left, right = textured_pair(STEREO_SHAPE, 40, seed=0)
+    lc, rc = (torch.as_tensor(x, device=dev) for x in (left, right))
+    agg_card = S.sgm_aggregate(lc, rc, STEREO_DISP)
+    disp_card = S.disparity_from_aggregate(agg_card, STEREO_DISP, 8).cpu()
+    agg_cpu = S.sgm_aggregate(torch.as_tensor(left), torch.as_tensor(right),
+                              STEREO_DISP)
+    disp_cpu = S.disparity_from_aggregate(agg_cpu, STEREO_DISP, 8)
+    agg_equal = torch.equal(agg_card.cpu(), agg_cpu)
+    int_equal = torch.equal(agg_card.argmin(-1).cpu(), agg_cpu.argmin(-1))
+    sub_err = float((disp_card - disp_cpu).abs().max())
+    valid = float((disp_card > 0).float().mean())
+    med = float(disp_card[disp_card > 0].median()) if valid else -1.0
+    del agg_card, agg_cpu
+    ms, host_ms = per_call_ms(lambda: S.sgm_disparity(lc, rc, STEREO_DISP),
+                              10, warmup=2)
+    h, w = STEREO_SHAPE
+    steps = max(h, w) - 1
+    print(f"[stereo] SGM {w}x{h}, {STEREO_DISP} disparities, textured pair "
+          f"at disparity 40: card vs CPU aggregated costs equal {agg_equal},"
+          f" integer disparities equal {int_equal}, subpixel max abs err "
+          f"{sub_err:.3g} (tol {STEREO_SUBPIX_TOL}); valid {valid:.2%}, "
+          f"median disparity {med:.3f}; {ms:.3f} ms a frame (CUDA events), "
+          f"host enqueue {host_ms:.3f} ms; the aggregation scan runs {steps}"
+          f" steps of {2 * h + 2 * w} sequences x {STEREO_DISP} [{card}]")
+    if not agg_equal:
+        fails.append("stereo: card and CPU SGM costs differ")
+    if not int_equal:
+        fails.append("stereo: card and CPU integer disparities differ")
+    if not sub_err <= STEREO_SUBPIX_TOL:
+        fails.append(f"stereo: subpixel error {sub_err:.3g} > "
+                     f"{STEREO_SUBPIX_TOL}")
+    if not abs(med - 40) < 1.0:
+        fails.append(f"stereo: median disparity {med:.3f} not 40 +- 1")
+    secs = {"sgm": time.perf_counter() - t0}
+
+    # the stereo tracker and mapper over a rectified pair sequence
+    t0 = time.perf_counter()
+    ds = SyntheticDataset(**STEREO_ROOM, device=dev)
+    fx = ds.intrinsics["fx"]
+    seq = []
+    for i in range(len(ds)):
+        f = ds.read(i)
+        seq.append((hide_gt(f, depth=None),
+                    right_view(f.color, f.depth, fx, STEREO_BASELINE), f.c2w))
+    secs["render"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    intr = dict(ds.intrinsics, stereo_baseline=STEREO_BASELINE)
+    fe = T.TrackingFrontend(intr, sensor="stereo",
+                            stereo_baseline=STEREO_BASELINE, max_corners=300,
+                            kf_trans_th=0.05, kf_rot_deg_th=5.0, device=dev)
+    mapper = GaussianMapper(
+        fe.queue, intr, mp=MapperParams(min_num_initial_map_kfs=2,
+                                        depth_cache=1),
+        cfg=RasterizeConfig(backend="cuda", mm_dtype="bfloat16"),
+        capacity=1 << 18, result_dir=out_dir, sensor_type="stereo",
+        device=dev)
+    densified = []
+    stereo_geo = mapper._stereo_inactive_geometry
+
+    def counted_geo(kf, packet):
+        out = stereo_geo(kf, packet)
+        densified.append(0 if out[0] is None else len(out[0]))
+        return out
+    mapper._stereo_inactive_geometry = counted_geo
+    track_ms = []
+    for fr, right, _ in seq:
+        ta = time.perf_counter()
+        fe.track(fr, color_right=right)
+        track_ms.append((time.perf_counter() - ta) * 1e3)
+        mapper.drain_operations()
+        if mapper.state is None and mapper.has_met_initial_conditions():
+            mapper.initialize_map()
+        if mapper.state is not None:
+            mapper.train_iteration()
+    sync(dev)
+    # the drift bound of tests/test_tracking_stereo.py:49-80: translation
+    # relative to the first frame, against GT, well under the span
+    T0 = fe.poses[0]
+    G0 = seq[0][2]
+    errs = [np.linalg.norm((np.linalg.inv(T0) @ est)[:3, 3] -
+                           (np.linalg.inv(G0) @ seq[fid][2])[:3, 3])
+            for fid, est in fe.poses.items()]
+    span = float(np.linalg.norm(seq[-1][2][:3, 3] - seq[0][2][:3, 3]))
+    bound = max(0.5 * span, 0.15)
+    secs["sequence"] = time.perf_counter() - t0
+    print(f"[stereo] sequence: {len(seq)} rectified pairs "
+          f"{ds.intrinsics['width']}x{ds.intrinsics['height']} (baseline "
+          f"{STEREO_BASELINE} m), stereo tracker with SGM on the card: "
+          f"{fe.n_keyframes_created} keyframes, lost {fe.lost_frames}, "
+          f"median drift {np.median(errs):.4f} m (bound {bound:.4f} m, "
+          f"span {span:.4f} m); tracker ms a frame median "
+          f"{statistics.median(track_ms):.2f}; mapper sensor_type stereo: "
+          f"SGM densify points a keyframe {densified}, {mapper.iteration} "
+          f"iterations, num_valid "
+          f"{int(mapper.state.num_valid()) if mapper.state else 0}; seconds "
+          f"{({k: round(v, 1) for k, v in secs.items()})} [{card}]")
+    if fe.n_keyframes_created < 2:
+        fails.append(f"stereo: {fe.n_keyframes_created} keyframes < 2")
+    if not np.median(errs) < bound:
+        fails.append(f"stereo: median drift {np.median(errs):.4f} >= "
+                     f"{bound:.4f}")
+    if not sum(densified) > 0:
+        fails.append("stereo: the SGM densify added no points")
+
+
+def mono_phase(dev, card, fails, out_dir):
+    """Phase 8 [mono]: 24 frames at 640x480 through the monocular tracker
+    (depth kept for its scale borrowing, as in
+    tests/test_tracking_mono.py:112-134) and a mapper with
+    sensor_type="monocular". Gates: the map initializes, >= 3 keyframes,
+    a SCALE_REFINEMENT emitted and applied, the up-to-scale ATE bound of
+    test_mono_tracking_ate_up_to_scale."""
+    from legslam_torch.config import MapperParams, RasterizeConfig
+    from legslam_torch.data.synthetic import SyntheticDataset
+    from legslam_torch.mapper.mapper import GaussianMapper
+    from legslam_torch.slam import tracking as T
+    t0 = time.perf_counter()
+    ds = SyntheticDataset(**MONO_ROOM, device=dev)
+    frames = [ds.read(i) for i in range(len(ds))]
+    render_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fe = T.TrackingFrontend(ds.intrinsics, sensor="mono", scale_refine_kfs=2,
+                            device=dev)
+    mapper = GaussianMapper(
+        fe.queue, ds.intrinsics, mp=MapperParams(min_num_initial_map_kfs=2),
+        cfg=RasterizeConfig(backend="cuda", mm_dtype="bfloat16"),
+        capacity=1 << 18, result_dir=out_dir, sensor_type="monocular",
+        device=dev)
+    ops = OpCounter(mapper)
+    emitted = []
+    push = fe.queue.push
+
+    def counted_push(op):
+        emitted.append(op.kind.name)
+        return push(op)
+    fe.queue.push = counted_push
+    track_ms = []
+    for f in frames:
+        ta = time.perf_counter()
+        fe.track(hide_gt(f))
+        track_ms.append((time.perf_counter() - ta) * 1e3)
+        mapper.drain_operations()
+        if mapper.state is None and mapper.has_met_initial_conditions():
+            mapper.initialize_map()
+        if mapper.state is not None:
+            mapper.train_iteration()
+    sync(dev)
+    ate_s, ate_r = traj_ate(fe, frames)
+    n_sr = emitted.count("SCALE_REFINEMENT")
+    print(f"[mono] {len(frames)} frames {ds.intrinsics['width']}x"
+          f"{ds.intrinsics['height']} of {MONO_ROOM['n_gaussians']} gaussians"
+          f", monocular tracker (depth only for the scale borrow): "
+          f"initialized {fe.initialized}, {fe.num_keyframes} keyframes, "
+          f"lost {fe.lost_frames}, SCALE_REFINEMENT emitted {n_sr} applied "
+          f"{ops.kinds.get('SCALE_REFINEMENT', 0)}, mono scale "
+          f"{fe.mono_scale:.4f}; ATE Sim(3) {ate_s:.4f} m (gate < "
+          f"{MONO_ATE_SIM3}), unaligned {ate_r:.4f} m; tracker ms a frame "
+          f"median {statistics.median(track_ms):.2f}; mapper monocular: "
+          f"map initialized {mapper.state is not None}, {mapper.iteration} "
+          f"iterations; seconds render {render_s:.1f} run "
+          f"{time.perf_counter() - t0:.1f} [{card}]")
+    if not fe.initialized or mapper.state is None:
+        fails.append("mono: the map did not initialize")
+    if fe.num_keyframes < 3:
+        fails.append(f"mono: {fe.num_keyframes} keyframes < 3")
+    if n_sr < 1 or ops.kinds.get("SCALE_REFINEMENT", 0) < 1:
+        fails.append(f"mono: SCALE_REFINEMENT emitted {n_sr}, applied "
+                     f"{ops.kinds.get('SCALE_REFINEMENT', 0)}")
+    if not ate_s < MONO_ATE_SIM3:
+        fails.append(f"mono: Sim(3) ATE {ate_s:.4f} >= {MONO_ATE_SIM3}")
+
+
+def viewer_phase(dev, card, fails, fe, mapper):
+    """Phase 8 [viewer]: serving/viewer.ViewerServer on [visual]'s mapper
+    and frontend on a local ephemeral port: /state and POST /params
+    answer; the /render query's RGB equals a direct render_from_pose of
+    the same pose bit for bit; the /slam_frame pane's input holds the
+    tracker's keypoints; the JPEG routes answer (200 with cv2, else 500
+    saying cv2 is missing)."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from legslam_torch.serving import viewer as V
+    v = V.ViewerServer(mapper=mapper, frontend=fe, host="127.0.0.1", port=0,
+                       device=dev)
+    server = v.serve()
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        t0 = time.perf_counter()
+        state, _ = _http(base + "/state")
+        params, _ = _http(base + "/params", {"lambda_dssim": 0.25})
+        # an orbit whose camera sits at the newest keyframe and looks
+        # along its axis, so the render shows the mapped walls
+        kf = mapper.keyframes[max(mapper.keyframes)]
+        fwd = kf.R[2].astype(np.float64)          # camera z in the world
+        eye = -(kf.R.T @ kf.t)
+        center = eye + 2.0 * fwd
+        q = dict(yaw=str(math.atan2(-fwd[0], -fwd[2])),
+                 pitch=str(math.asin(-fwd[1])), r="2.0",
+                 cx=str(center[0]), cy=str(center[1]), cz=str(center[2]),
+                 w="640", h="360")
+        rgb = v.render_rgb(q)
+        R, t, w, h = V.query_pose(q)
+        direct = mapper.render_from_pose(R, t, w, h).color.float().cpu() \
+            .numpy()
+        render_equal = bool(np.array_equal(rgb, direct))
+        vis = v.slam_frame_input()
+        kp_equal = vis is not None and np.array_equal(vis["pts"],
+                                                      fe._track_px)
+        jpeg = V.jpeg_available()
+        codes = {}
+        for route in ("/render?w=320&h=180", "/slam_frame"):
+            try:
+                with urllib.request.urlopen(base + route, timeout=60) as r:
+                    codes[route] = (r.status, r.read()[:2] == b"\xff\xd8")
+            except urllib.error.HTTPError as e:
+                codes[route] = (e.code, "cv2" in e.read().decode())
+        secs = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    print(f"[viewer] /state {state}; POST /params {params}; /render RGB "
+          f"640x360 equals render_from_pose: {render_equal} (mean "
+          f"{float(rgb.mean()):.4f}); /slam_frame input keypoints "
+          f"{0 if vis is None else len(vis['pts'])} equal the tracker's: "
+          f"{kp_equal}; JPEG encoding available: {jpeg}; JPEG routes "
+          f"(status, {'JPEG magic' if jpeg else 'message names cv2'}) "
+          f"{codes}; seconds {secs:.1f} [{card}]")
+    if state.get("iteration") != mapper.iteration:
+        fails.append(f"viewer: /state answered {state}")
+    if params.get("updated") != ["lambda_dssim"] or \
+            mapper.opt.lambda_dssim != 0.25:
+        fails.append(f"viewer: POST /params answered {params}")
+    if not render_equal:
+        fails.append("viewer: /render RGB differs from render_from_pose")
+    if not kp_equal:
+        fails.append("viewer: /slam_frame input lacks the tracker's keypoints")
+    want = 200 if jpeg else 500
+    for route, (code, ok) in codes.items():
+        if code != want or not ok:
+            fails.append(f"viewer: {route} answered {code}")
+
+
 def build_phase():
     from legslam_torch import _build
     names = ("composite_fwd", "composite_bwd", "sort")
@@ -1843,7 +2411,7 @@ def main() -> int:
     t_phase = time.perf_counter()
     system_phase(dev, card, fails, str(out_dir) + "_system", ds, frames, enc)
     pca = enc.pca_params
-    del enc, ds, frames
+    del ds, frames
     torch.cuda.empty_cache()
     phase_s["system"] = time.perf_counter() - t_phase
 
@@ -1852,6 +2420,27 @@ def main() -> int:
     query_launches = query_phase(dev, card, fails,
                                  Path(str(out_dir) + "_query"), pca)
     phase_s["query"] = time.perf_counter() - t_phase
+
+    # phase 8: the visual tracking frontend, SGM stereo, mono, the viewer;
+    # the tracker takes its native route (the port's C++ core, built with
+    # g++ from the checkout) whether or not cv2 is installed
+    os.environ["LEGSLAM_NATIVE_TRACKING"] = "1"
+    t_phase = time.perf_counter()
+    fe, vis_mapper, visual_launches = visual_phase(
+        dev, card, fails, str(out_dir) + "_visual", enc)
+    del enc
+    phase_s["visual"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    viewer_phase(dev, card, fails, fe, vis_mapper)
+    del fe, vis_mapper
+    torch.cuda.empty_cache()
+    phase_s["viewer"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    stereo_phase(dev, card, fails, str(out_dir) + "_stereo")
+    phase_s["stereo"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    mono_phase(dev, card, fails, str(out_dir) + "_mono")
+    phase_s["mono"] = time.perf_counter() - t_phase
     print(f"[phases] seconds {({k: round(v, 1) for k, v in phase_s.items()})}"
           f", total {sum(phase_s.values()):.1f} [{card}]")
 
@@ -1864,6 +2453,7 @@ def main() -> int:
         rows.append(dict(name=name, route="cuda", source=src, replaces=tpu,
                          launches=launches[k],
                          query_launches=query_launches[name],
+                         visual_launches=visual_launches[name],
                          max_abs_err=errs[k],
                          ms=times[k], plain_ms=times[f"{k}_plain"],
                          bound_ms=b[k]["bound_ms"],
@@ -1874,6 +2464,7 @@ def main() -> int:
                          source="legslam_torch/csrc/sort.cu", replaces=tpu,
                          launches=mapper_launches[name],
                          query_launches=query_launches[name],
+                         visual_launches=visual_launches[name],
                          max_abs_err=sort_errs[name], ms=sort_times[name],
                          plain_ms=sort_times[f"{name}_plain"],
                          bound_ms=sort_bnd[name]["bound_ms"],

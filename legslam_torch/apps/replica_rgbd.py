@@ -9,6 +9,7 @@ output lines:
       [--camera-cfg cfg/camera/RGB-D/Replica/office0.yaml] \
       [--kf-stride 8] [--max-frames N] [--capacity 262144] [--no-lf] \
       [--encoder-weights <dir with dinov2.npz + pca.npz>] \
+      [--frontend trajectory|visual] [--sensor auto|rgbd|mono|stereo|...] \
       [--device cuda|cpu]
 
 Prints per-run "Average FPS" and "Total time" lines like the reference
@@ -18,9 +19,12 @@ tree, TrackingTime.txt, GpuPeakUsageMB.txt and the trajectory files. With
 language features on the device (models/encoder.py), and the keyframes
 keep them there.
 
-Not ported yet (it raises, see ROADMAP.md): `--frontend visual`. The JAX
-app's persistent XLA compilation cache has no counterpart: PyTorch runs
-eagerly and the kernels are built once into build/legslam_torch/.
+`--frontend visual` tracks with the KLT + RANSAC frontend
+(slam/tracking.py) and GT poses hidden, in the sensor mode of `--sensor`
+("auto" sniffs the dataset: stereo pairs, no depth, an IMU stream); its
+stereo SGM runs on `--device`. The JAX app's persistent XLA compilation
+cache has no counterpart: PyTorch runs eagerly and the kernels are built
+once into build/legslam_torch/.
 """
 from __future__ import annotations
 
@@ -34,17 +38,24 @@ import torch
 
 
 def process_frame(frame, frontend, mapper, encoder=None, lf_image=None,
-                  iters_per_frame: int = 1):
+                  iters_per_frame: int = 1, imu=None):
     """One frame of the online loop, run serially (the reference tracks
     and maps in concurrent threads): the frame's language features (the
     encoder's, else `lf_image`), tracking, the mapper's drain of the
     frontend's operations, map initialization once its conditions hold,
-    then `iters_per_frame` mapping iterations. Returns the LF image handed
-    to the frontend; the encoder's stays on its device, and the keyframe
-    keeps that tensor."""
+    then `iters_per_frame` mapping iterations. The visual frontend also
+    gets the frame's right image and `imu`, the [K, 7] IMU rows since the
+    previous frame. Returns the LF image handed to the frontend; the
+    encoder's stays on its device, and the keyframe keeps that tensor."""
+    from legslam_torch.slam.tracking import TrackingFrontend
     if encoder is not None:
         lf_image = encoder.create_language_features(frame.color)
-    frontend.track(frame, lf_image=lf_image)
+    if isinstance(frontend, TrackingFrontend):
+        frontend.track(frame, lf_image=lf_image,
+                       color_right=getattr(frame, "color_right", None),
+                       imu=imu)
+    else:
+        frontend.track(frame, lf_image=lf_image)
     mapper.drain_operations()
     if mapper.state is None and mapper.has_met_initial_conditions():
         mapper.initialize_map()
@@ -67,7 +78,7 @@ def main(argv=None):
     parser.add_argument("--frontend", default="trajectory",
                         choices=("trajectory", "visual"),
                         help="trajectory = GT-pose playback; visual = "
-                        "KLT+RANSAC tracking (not ported yet)")
+                        "KLT+RANSAC tracking")
     parser.add_argument("--sensor", default="auto",
                         choices=("auto", "rgbd", "mono", "stereo",
                                  "rgbd-inertial", "mono-inertial",
@@ -115,11 +126,6 @@ def main(argv=None):
                         help="torch device of the map and the step")
     args = parser.parse_args(argv)
 
-    if args.frontend == "visual":
-        raise NotImplementedError(
-            "--frontend visual: slam/tracking.py is not ported to "
-            "legslam_torch yet; see ROADMAP.md")
-
     from legslam_torch.config import RasterizeConfig
     from legslam_torch.data.datasets import open_dataset
     from legslam_torch.mapper.mapper import GaussianMapper
@@ -159,9 +165,19 @@ def main(argv=None):
         if getattr(ds, "imu_between", None) is not None and \
                 getattr(ds, "_imu", None) is not None:
             sensor += "-inertial"
+    has_imu = sensor.endswith("-inertial") and \
+        getattr(ds, "imu_between", None) is not None
     base_sensor = sensor[:-len("-inertial")] if \
         sensor.endswith("-inertial") else sensor
-    frontend = TrajectoryFrontend(intr, kf_stride=args.kf_stride)
+    if args.frontend == "visual":
+        from legslam_torch.slam.tracking import TrackingFrontend
+        frontend = TrackingFrontend(
+            intr, sensor=sensor,
+            stereo_baseline=intr.get("stereo_baseline",
+                                     getattr(ds, "baseline", 0.0)),
+            device=device)
+    else:
+        frontend = TrajectoryFrontend(intr, kf_stride=args.kf_stride)
     mapper = GaussianMapper(frontend.queue, intr, opt=opt, mp=mp, cfg=cfg,
                             capacity=args.capacity, result_dir=args.out,
                             seed=args.seed, max_per_tile=args.max_per_tile,
@@ -188,11 +204,12 @@ def main(argv=None):
     t_start = time.perf_counter()
     it = iter(ds.iter_prefetched())
     with prof:
-        for _ in range(n):
+        for i in range(n):
             frame = next(it)
             t0 = time.perf_counter()
             process_frame(frame, frontend, mapper, encoder,
-                          iters_per_frame=args.iters_per_frame)
+                          iters_per_frame=args.iters_per_frame,
+                          imu=ds.imu_between(i) if has_imu else None)
             track_times.append(time.perf_counter() - t0)
     total = time.perf_counter() - t_start
     frontend.finish()

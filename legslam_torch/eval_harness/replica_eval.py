@@ -9,12 +9,13 @@ keyframe and score PSNR / SSIM / depth-L1(cm) / ATE-RMSE, writing
 module's format.
 
 With `lpips_weights` (an lpips_alex.npz) each keyframe is also scored by
-LPIPS(alex) (models/lpips.py) on the mapper's device. Not ported yet (it
-raises, see ROADMAP.md): `frontend="visual"` (the KLT+RANSAC tracker,
-slam/tracking.py).
+LPIPS(alex) (models/lpips.py) on the mapper's device. `frontend="visual"`
+runs the KLT+RANSAC tracker (slam/tracking.py) with GT poses hidden, so
+ate_rmse scores its retro-corrected trajectory against the withheld GT.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -30,6 +31,7 @@ from legslam_torch.data.datasets import open_dataset
 from legslam_torch.eval_harness import metrics
 from legslam_torch.mapper.mapper import GaussianMapper
 from legslam_torch.ops import losses
+from legslam_torch.slam.tracking import TrackingFrontend
 from legslam_torch.slam.trajectory import TrajectoryFrontend
 
 REPLICA_SCENES = ("office0", "office1", "office2", "office3", "office4",
@@ -50,16 +52,22 @@ def run_scene(scene_dir: str, out_dir: str,
               frontend_kwargs: Optional[dict] = None,
               device: str | torch.device = "cuda") -> dict:
     """Online mapping over one scene on `device`; returns metrics + timing.
-    The frontend plays back GT poses, so ATE is 0 by construction. LF
-    images come from `encoder` (on its device) or else `lf_loader(frame)`.
+
+    frontend: "trajectory" plays back GT poses (ATE is then 0 by
+    construction); "visual" runs the tracking frontend (its stereo SGM on
+    `device`) with GT poses hidden, so ate_rmse measures real tracking
+    drift. LF images come from `encoder` (on its device) or else
+    `lf_loader(frame)`.
     """
-    if frontend != "trajectory":
-        raise NotImplementedError(
-            f"frontend={frontend!r}: slam/tracking.py is not ported to "
-            "legslam_torch yet; see ROADMAP.md")
     ds = open_dataset(scene_dir)
-    fe = TrajectoryFrontend(ds.intrinsics, kf_stride=kf_stride,
-                            **(frontend_kwargs or {}))
+    if frontend == "visual":
+        fe = TrackingFrontend(ds.intrinsics, **{"device": device,
+                                                **(frontend_kwargs or {})})
+    elif frontend == "trajectory":
+        fe = TrajectoryFrontend(ds.intrinsics, kf_stride=kf_stride,
+                                **(frontend_kwargs or {}))
+    else:
+        raise ValueError(f"unknown frontend {frontend!r}")
     mapper = GaussianMapper(fe.queue, ds.intrinsics, opt=opt, mp=mp,
                             cfg=cfg, capacity=capacity, result_dir=out_dir,
                             device=device)
@@ -67,17 +75,29 @@ def run_scene(scene_dir: str, out_dir: str,
     n = len(ds) if max_frames is None else min(len(ds), max_frames)
     t_start = time.perf_counter()
     est_centers, gt_centers = [], []
+    gt_by_fid = {}
     it = iter(ds.iter_prefetched())
     for _ in range(n):
         frame = next(it)
         lf = lf_loader(frame) if encoder is None and lf_loader is not None \
             else None
+        if frontend == "visual" and frame.c2w is not None:
+            # hide GT from the tracker; keep it for ATE scoring
+            gt_by_fid[frame.index] = frame.c2w[:3, 3]
+            frame = dataclasses.replace(frame, c2w=None)
         # the reference trains concurrently; serial equivalent: a fixed
         # number of mapper ticks per frame
         process_frame(frame, fe, mapper, encoder, lf, iterations_per_frame)
-        if frame.c2w is not None:
+        if frontend != "visual" and frame.c2w is not None:
             gt_centers.append(frame.c2w[:3, 3])
             est_centers.append(frame.c2w[:3, 3])  # GT-pose frontend: exact
+    if frontend == "visual":
+        # retro-corrected (BA/loop) trajectory vs the withheld GT
+        fids, c2w = fe.trajectory()
+        for f, T in zip(fids, c2w):
+            if int(f) in gt_by_fid:
+                est_centers.append(T[:3, 3])
+                gt_centers.append(gt_by_fid[int(f)])
     fe.finish()
     total = time.perf_counter() - t_start
     fps = n / total

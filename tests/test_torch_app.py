@@ -111,11 +111,167 @@ def test_replica_layout_cli_end_to_end(replica_scene, tmp_path, capsys):
     assert float(psnrs.mean()) > 12.0, psnrs
 
 
-@pytest.mark.parametrize("flags", [["--frontend", "visual"]])
+@pytest.mark.parametrize("flags", [["--n-views", "2"],
+                                   ["--spatial-strips", "2"],
+                                   ["--shard-store"]])
 def test_unported_options_raise(replica_scene, tmp_path, flags):
     from legslam_torch.apps.replica_rgbd import main
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["--data", str(replica_scene), "--out", str(tmp_path)] + flags)
+
+
+VISUAL_FRAMES = 6
+
+
+def _right_view(color, depth, fx, baseline):
+    """A rectified right view, right(u) = left(u + fx*b/z), as
+    tests/test_tracking_stereo.py:21-35 warps it."""
+    h, w, _ = color.shape
+    us = np.arange(w, dtype=np.float32)[None, :].repeat(h, 0)
+    src = np.clip(us + fx * baseline / np.where(depth > 1e-3, depth, 1e6),
+                  0, w - 1)
+    lo = np.floor(src).astype(np.int32)
+    hi = np.minimum(lo + 1, w - 1)
+    f = (src - lo)[..., None]
+    rows = np.arange(h)[:, None]
+    return (color[rows, lo] * (1 - f) + color[rows, hi] * f).astype(
+        np.float32)
+
+
+class _Recorded:
+    """Wraps the visual TrackingFrontend the app builds, recording its
+    sensor mode and the track() keywords it receives."""
+
+    def __init__(self, monkeypatch):
+        from legslam_torch.slam import tracking
+        rec = self
+        self.frontends, self.calls = [], []
+
+        class Recording(tracking.TrackingFrontend):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                rec.frontends.append(self)
+
+            def track(self, frame, **kw):
+                rec.calls.append(kw)
+                return super().track(frame, **kw)
+        monkeypatch.setattr(tracking, "TrackingFrontend", Recording)
+        monkeypatch.setenv("LEGSLAM_NATIVE_TRACKING", "1")
+
+
+@pytest.mark.parametrize("sensor", ["rgbd", "mono", "mono-inertial"])
+def test_visual_frontend_end_to_end(replica_scene, tmp_path, capsys,
+                                    monkeypatch, sensor):
+    """--frontend visual on the Replica layout: the tracker's own poses
+    drive the mapper, in each sensor mode the layout allows (it has no IMU
+    stream, so the inertial mode tracks without one; the stereo modes are
+    the EuRoC case below)."""
+    from legslam_torch.apps.replica_rgbd import main
+    rec = _Recorded(monkeypatch)
+    cfg = tmp_path / "tiny_rgbd.yaml"
+    cfg.write_text(MAPPER_YAML)
+    out = str(tmp_path / "run")
+    main(["--data", str(replica_scene), "--out", out, "--cfg", str(cfg),
+          "--frontend", "visual", "--sensor", sensor, "--max-frames",
+          str(VISUAL_FRAMES)] + FAST_ARGS)
+    text = capsys.readouterr().out
+    assert "Average FPS:" in text and "PSNR-GS:" in text, text
+    (fe,) = rec.frontends
+    assert fe.sensor == sensor.split("-")[0]
+    assert fe.use_imu == sensor.endswith("-inertial")
+    assert fe.device == torch.device("cpu")
+    assert len(rec.calls) == VISUAL_FRAMES
+    assert all(c["imu"] is None and c["color_right"] is None
+               for c in rec.calls)
+    assert fe.n_keyframes_created >= 2
+    tum = np.loadtxt(os.path.join(out, "CameraTrajectory_TUM.txt"))
+    assert tum.ndim == 2 and tum.shape[1] == 8 and np.isfinite(tum).all()
+    # the trajectory files hold the tracker's poses, not the input GT
+    est = {int(f) for f in fe.keyframes}
+    assert len(tum) <= max(len(est), fe.n_keyframes_created)
+
+
+@pytest.mark.parametrize("sensor", ["stereo", "auto"])
+def test_euroc_stereo_cli_end_to_end(tmp_path, monkeypatch, sensor):
+    """The EuRoC layout through --frontend visual --camera-cfg, as
+    tests/test_app_e2e.py:168 drives the JAX app: the stereo tracker's SGM
+    depth and the mapper's SGM densify build the map. "auto" sniffs the
+    layout's stereo pairs and IMU stream: stereo-inertial, fed the IMU
+    rows between frames (ds.imu_between)."""
+    from legslam_torch.apps.replica_rgbd import main
+    from legslam_torch.data.datasets import EuRoCStereoDataset, open_dataset
+    from legslam_torch.utils import ply
+    from tests.test_app_e2e import CAMERA_YAML_TMPL
+    from tests.util import make_euroc_dir
+    rec = _Recorded(monkeypatch)
+    # at 160x96 (fx 128) a 1 m baseline puts the walls (z 4-8 m) at 16-32
+    # px of disparity, inside SGM's [8, 128) window
+    n, baseline = 6, 1.0
+    ds = SyntheticDataset(n_frames=n, width=W, height=H, n_gaussians=4000,
+                          seed=11, clutter_ratio=0.0, revolutions=0.1,
+                          device="cpu")
+    fx = ds.intrinsics["fx"]
+    frames = [(f.color, _right_view(f.color, f.depth, fx, baseline), f.c2w)
+              for f in ds]
+    scene = make_euroc_dir(tmp_path, n=n, width=W, height=H,
+                           baseline=baseline, frames=frames,
+                           intrinsics=(fx, ds.intrinsics["fy"],
+                                       ds.intrinsics["cx"],
+                                       ds.intrinsics["cy"]),
+                           distortion=(0.0, 0.0, 0.0, 0.0))
+    assert isinstance(open_dataset(scene), EuRoCStereoDataset)
+    cam_yaml = tmp_path / "stereo_cam.yaml"
+    cam_yaml.write_text(CAMERA_YAML_TMPL.format(
+        fx=fx, fy=ds.intrinsics["fy"], cx=ds.intrinsics["cx"],
+        cy=ds.intrinsics["cy"], w=W, h=H, b=baseline))
+    cfg = tmp_path / "tiny_rgbd.yaml"
+    cfg.write_text(MAPPER_YAML)
+    out = str(tmp_path / "run")
+    main(["--data", scene, "--out", out, "--cfg", str(cfg),
+          "--camera-cfg", str(cam_yaml), "--frontend", "visual",
+          "--sensor", sensor] + FAST_ARGS)
+    (fe,) = rec.frontends
+    assert fe.sensor == "stereo" and fe.stereo_baseline == baseline
+    assert fe.use_imu == (sensor == "auto")
+    assert all(c["color_right"] is not None for c in rec.calls)
+    imus = [c["imu"] for c in rec.calls]
+    if sensor == "auto":
+        assert all(x is not None and x.shape[1] == 7 for x in imus[1:])
+    else:
+        assert all(x is None for x in imus)
+    data = ply.load_gaussian_ply(os.path.join(
+        out, "experiment", "ply", "point_cloud", "point_cloud.ply"))
+    assert data["xyz"].shape[0] > 100
+    assert os.path.exists(os.path.join(out, "CameraTrajectory_TUM.txt"))
+
+
+def test_run_scene_visual_frontend(tmp_path, monkeypatch):
+    """eval_harness.replica_eval.run_scene(frontend="visual"): GT hidden
+    from the tracker, ATE scored against it (non-vacuous, and within the
+    bar of tests/test_eval_visual_frontend.py)."""
+    from legslam_torch.config import (MapperParams, OptimizationParams,
+                                      RasterizeConfig)
+    from legslam_torch.eval_harness import replica_eval
+    monkeypatch.setenv("LEGSLAM_NATIVE_TRACKING", "1")
+    ds = SyntheticDataset(n_frames=12, width=160, height=96,
+                          n_gaussians=2500, seed=7, clutter_ratio=0.0,
+                          revolutions=0.12, device="cpu")
+    monkeypatch.setattr(replica_eval, "open_dataset", lambda path: ds)
+    r = replica_eval.run_scene(
+        "synthetic", str(tmp_path / "out"),
+        opt=OptimizationParams(densify_from_iter=10,
+                               densification_interval=40,
+                               opacity_reset_interval=0),
+        mp=MapperParams(min_num_initial_map_kfs=3, depth_cache=2),
+        cfg=RasterizeConfig(backend="cuda", tile_batch=4, chunk=64,
+                            max_span_x=3, max_span_y=8),
+        capacity=1 << 12, frontend="visual",
+        frontend_kwargs=dict(ransac_thresh=0.1), return_mapper=True,
+        device="cpu")
+    assert 1e-6 < r["ate_rmse"] < 0.2, r
+    assert np.isfinite(r["psnr"]) and r["psnr"] > 10.0, r
+    assert r["n_gaussians"] > 0
+    assert r["_mapper"].device == torch.device("cpu")
 
 
 # the small DINOv2 of the JAX suite (tests/test_dinov2.py): 56x56 input,

@@ -54,3 +54,10 @@ def test_the_check_sees_every_form():
     assert _forbidden(src) == ["flax.linen", "jax", "jax.numpy",
                                "legslam_tpu.config", "legslam_tpu.ops"]
     assert len(FILES) > 30 and "legslam_torch/mapper/mapper.py" in FILES
+
+
+def test_tracking_slice_is_checked():
+    """The visual tracking slice's modules are among the files checked."""
+    for mod in ("slam/tracking", "slam/native", "slam/pose_graph",
+                "slam/imu", "ops/stereo", "serving/viewer"):
+        assert f"legslam_torch/{mod}.py" in FILES, mod

@@ -259,13 +259,12 @@ def test_mapper_final_state_matches(mapper_runs):
 
 
 @pytest.mark.parametrize("kw", [dict(n_views=2), dict(spatial_strips=2),
-                                dict(shard_store=True),
-                                dict(sensor_type="monocular"),
-                                dict(sensor_type="stereo")])
+                                dict(shard_store=True)])
 def test_unported_mapper_paths_raise(kw):
-    """The multi-view, spatial and sharded paths and the mono / stereo
-    inactive geometry are not ported: they raise, pointing at the
-    ROADMAP, instead of running something else."""
+    """The multi-view, spatial and sharded paths are not ported: they
+    raise, pointing at the ROADMAP, instead of running something else.
+    (The mono / stereo inactive geometry is ported and held against JAX in
+    tests/test_torch_stereo.py.)"""
     from legslam_torch.slam.interface import OperationQueue
     intr = dict(width=W, height=H, fx=100.0, fy=100.0, cx=63.5, cy=31.5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
