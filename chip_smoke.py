@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Build legslam_torch's CUDA kernels and drive the port's mapping step, its
 online mapper, its language-feature encoder, its RGB-D system loop, its
-open-vocabulary query and serving stack, and its visual tracking frontend
-(RGB-D, stereo with SGM, monocular) with the live viewer on one NVIDIA
-H100.
+open-vocabulary query and serving stack, its visual tracking frontend
+(RGB-D, stereo with SGM, monocular) with the live viewer, and its bucketed,
+strip, multi-view and slab-skipped paths on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -85,14 +85,32 @@ Phases (each prints one or more lines; any failure exits non-zero):
      against CPU, timed, then a 10-frame rectified pair sequence through
      the stereo tracker and a stereo mapper; [mono] 24 frames at 640x480
      through the monocular tracker and a monocular mapper;
-  9. a {"kernels": [...]} line, then the card line, then as the last line
+  9. the last slice (see bucket_phase, strips_phase, multiview_phase,
+     slabs_cull_phase, store_phase): [buckets] phase 4's scene in the
+     bucketed layout (4 buckets of 2^19 pairs: an even split of
+     max_pairs loses pairs): each compositing kernel
+     against its plain version at 320x192 and at 1200x680, the bucketed
+     render against the flat one, the kernels' and the binnings' times
+     beside the flat layout's, 8 bucketed steps; [strips] the main-path
+     step in 4 tile-row strips against the full render and train_step
+     (loss, parameters, Adam moments, densify statistics), then phase 5's
+     room through GaussianMapper(spatial_strips=4);
+     [multiview] a 1-view batched tick against train_step, then the room
+     through GaussianMapper(n_views=4); [slabs], [cull] p_slabs=8 and
+     ellipse_cull=False on the main path against the default, and the
+     room through GaussianMapper with p_slabs=8, the watermark from its
+     bookkeeping against a read each step; [store]
+     shard_store on one card takes the one-device path;
+ 10. a {"kernels": [...]} line, then the card line, then as the last line
      {"ok": true, "device": {...}}.
 
 Each kernel's `launches` is its count over the path that runs it: the
 compositing kernels' over phase 4's 24 steps, the sort kernels' over
 phase 5's training loop (phase 4 runs cuda_sort at its default and
 counts their launches too); `query_launches` is its count over phase 7's
-pixel-space search, `visual_launches` over phase 8's [visual] system loop.
+pixel-space search, `visual_launches` over phase 8's [visual] system loop,
+and a compositing kernel's `bucketed_*` keys are phase 9's [buckets]
+readings (its launches over the 8 bucketed steps).
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result. Imports nothing of JAX.
 """
@@ -348,10 +366,12 @@ def close(a, b, atol, rtol):
 
 
 def fwd_digest(tfin, kfin) -> str:
-    """sha256 of the forward's t_final bytes, then kfin's (16 hex digits)."""
+    """sha256 of the forward's t_final bytes, then kfin's (16 hex digits);
+    t_final's alone for a bucketed layout (no kfin)."""
     h = hashlib.sha256()
     for x in (tfin, kfin):
-        h.update(x.detach().cpu().numpy().tobytes())
+        if x is not None:
+            h.update(x.detach().cpu().numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -377,7 +397,7 @@ def check_kernels(fwd_args, bwd_args, label, card, fails):
         with T <= 1e-2 in both versions, and at most 1e-4 of the pixels
         may be such;
       * kfin: equal on all but 0.5% of tiles, those off by one (the same
-        rounding at a chunk end);
+        rounding at a chunk end); a bucketed layout has none;
       * backward dgeo and dfeats: atol 2e-4 x the array's max |plain| /
         rtol 2e-2, the JAX suite's gradient tolerance
         (tests/test_pallas_grad.py) scaled to the gradients' magnitude.
@@ -400,9 +420,13 @@ def check_kernels(fwd_args, bwd_args, label, card, fails):
     e_t = float((tfin_k - tfin_p)[good].abs().max())
     e_all = float(torch.maximum((acc_k - acc_p).abs().amax(-1),
                                 (tfin_k - tfin_p).abs()).max())
-    dk = (kfin_k.long() - kfin_p.long()).abs()
-    n_kdiff = int((dk > 0).sum())
-    ok5 = int(dk.max()) <= 1 and n_kdiff <= 0.005 * dk.numel()
+    if kfin_k is None:
+        dk = torch.zeros(0)
+        n_kdiff, ok5 = 0, kfin_p is None
+    else:
+        dk = (kfin_k.long() - kfin_p.long()).abs()
+        n_kdiff = int((dk > 0).sum())
+        ok5 = int(dk.max()) <= 1 and n_kdiff <= 0.005 * dk.numel()
     dgeo_k, dfe_k = composite_backward(*bwd_args)
     torch.cuda.synchronize()
     dgeo_p, dfe_p = composite_backward_plain(*bwd_args)
@@ -488,10 +512,13 @@ def event_ms(fn, reps):
 
 
 @torch.no_grad()
-def work_counts(start, count, geo, tile_w, tile_h, ntx, chunk, kfin):
+def work_counts(start, count, geo, tile_w, tile_h, ntx, chunk, kfin,
+                n_buckets=1):
     """(pair-pixels evaluated, kept, contributing, pair rows read) over the
-    chunks each tile processes before its termination watermark kfin: what
-    these inputs need, for the bound."""
+    chunks each tile processes: up to its termination watermark kfin in
+    the flat layout, and over its bucket ranges in order up to the chunk
+    after which every pixel has log T_all < log(1e-4) in a bucketed one
+    (kfin None): what these inputs need, for the bound."""
     from legslam_torch.ops.cuda.composite import (LOG_TERM, chunk_alpha,
                                                   exclusive_cumsum,
                                                   tile_chunk_ranges,
@@ -499,42 +526,54 @@ def work_counts(start, count, geo, tile_w, tile_h, ntx, chunk, kfin):
     dev = geo.device
     n_eval = n_keep = n_contrib = rows = 0
     koff = torch.arange(chunk, device=dev)
-    for t0 in range(0, start.shape[0], 16):
-        tid = torch.arange(t0, min(t0 + 16, start.shape[0]), device=dev)
-        s, e, base0, _ = tile_chunk_ranges(start[tid], count[tid], chunk)
+    ntiles = start.shape[0] // n_buckets
+    for t0 in range(0, ntiles, 16):
+        tid = torch.arange(t0, min(t0 + 16, ntiles), device=dev)
         px, py = tile_pixels(tid, tile_w, tile_h, ntx)
-        kf = kfin[tid].long()
         log_all = torch.zeros(len(tid), tile_w * tile_h, device=dev)
-        for k in range(int(kf.max())):
-            pos = base0[:, None] + k * chunk + koff
-            in_range = (pos >= s[:, None]) & (pos < e[:, None]) & \
-                (k < kf)[:, None]
-            alpha = chunk_alpha(geo, pos, in_range, px, py)["alpha"]
-            log1m = torch.log1p(-alpha)
-            log_exc = log_all[..., None] + exclusive_cumsum(log1m)
-            contrib = (log_exc + log1m >= LOG_TERM) & (alpha > 0)
-            npair = int(in_range.sum())
-            rows += npair
-            n_eval += npair * tile_w * tile_h
-            n_keep += int((alpha > 0).sum())
-            n_contrib += int(contrib.sum())
-            log_all = log_all + log1m.sum(-1)
+        alive = torch.ones(len(tid), dtype=torch.bool, device=dev)
+        for b in range(n_buckets):
+            rid = tid * n_buckets + b
+            s, e, base0, n_chunks = tile_chunk_ranges(start[rid], count[rid],
+                                                      chunk)
+            kf = kfin[tid].long() if kfin is not None else n_chunks
+            for k in range(int(kf.max())):
+                running = (k < kf) & alive
+                pos = base0[:, None] + k * chunk + koff
+                in_range = (pos >= s[:, None]) & (pos < e[:, None]) & \
+                    running[:, None]
+                alpha = chunk_alpha(geo, pos, in_range, px, py)["alpha"]
+                log1m = torch.log1p(-alpha)
+                log_exc = log_all[..., None] + exclusive_cumsum(log1m)
+                contrib = (log_exc + log1m >= LOG_TERM) & (alpha > 0)
+                npair = int(in_range.sum())
+                rows += npair
+                n_eval += npair * tile_w * tile_h
+                n_keep += int((alpha > 0).sum())
+                n_contrib += int(contrib.sum())
+                log_all = log_all + log1m.sum(-1)
+                if kfin is None:
+                    alive = alive & ~(running & (log_all.max(-1).values
+                                                 < LOG_TERM))
     return n_eval, n_keep, n_contrib, rows
 
 
 def bounds(fwd_args, kfin):
     """Least times (ms) of the forward and backward kernels on these inputs:
-    the larger of bytes / HBM rate and f32 ops / CUDA-core peak."""
-    start, count, geo, feats, tile_w, tile_h, ntx, chunk = fwd_args
+    the larger of bytes / HBM rate and f32 ops / CUDA-core peak. kfin is
+    None for a bucketed layout (the ranges are walked to termination)."""
+    start, count, geo, feats, tile_w, tile_h, ntx, chunk = fwd_args[:8]
+    n_buckets = fwd_args[8] if len(fwd_args) > 8 else 1
     c = feats.shape[1]
-    ntiles, npix = start.shape[0], tile_w * tile_h
+    ntiles, npix = start.shape[0] // n_buckets, tile_w * tile_h
     n_eval, n_keep, n_contrib, rows = work_counts(
-        start, count, geo, tile_w, tile_h, ntx, chunk, kfin)
+        start, count, geo, tile_w, tile_h, ntx, chunk, kfin, n_buckets)
     row_bytes = 32 + c * feats.element_size()
     pix_bytes = ntiles * npix * 4
-    fwd_bytes = 8 * ntiles + rows * row_bytes + pix_bytes * (c + 1) + \
-        4 * ntiles
-    bwd_bytes = 8 * ntiles + rows * row_bytes + pix_bytes * (2 * c + 2) + \
+    ranges = 8 * ntiles * n_buckets
+    fwd_bytes = ranges + rows * row_bytes + pix_bytes * (c + 1) + \
+        (4 * ntiles if kfin is not None else 0)
+    bwd_bytes = ranges + rows * row_bytes + pix_bytes * (2 * c + 2) + \
         geo.shape[0] * (32 + 4 * c)
     base_ops = n_eval * OPS_EVAL + n_keep * OPS_KEEP
     fwd_ops = base_ops + n_contrib * ops_fwd_contrib(c)
@@ -704,10 +743,12 @@ MAPPER_ROOM = dict(n_frames=40, width=1200, height=680, n_gaussians=200_000,
                    seed=0)
 
 
-def drive_mapper(dev, ds, frames, cfg, out_dir, max_per_tile=2048):
+def drive_mapper(dev, ds, frames, cfg, out_dir, max_per_tile=2048,
+                 **mapper_kw):
     """Drive GaussianMapper over `frames` as the app loop does (track,
     drain, initialize_map, train_iteration; then the tail), with a seeded
-    unit-norm 37x37x64 LF grid a frame standing in for the encoder.
+    unit-norm 37x37x64 LF grid a frame standing in for the encoder;
+    mapper_kw go to the mapper (n_views, spatial_strips, shard_store).
     Returns the mapper, a copy of its store right after initialize_map,
     and the ms per iteration, synced losses and capacity rungs."""
     from legslam_torch.config import MapperParams, OptimizationParams
@@ -726,7 +767,8 @@ def drive_mapper(dev, ds, frames, cfg, out_dir, max_per_tile=2048):
                             mp=MapperParams(min_num_initial_map_kfs=4),
                             cfg=cfg, capacity=1 << 18, result_dir=out_dir,
                             max_per_tile=max_per_tile,
-                            binning_refresh_interval=8, device=dev)
+                            binning_refresh_interval=8, device=dev,
+                            **mapper_kw)
     iter_ms, losses, rungs, init = [], [], [], None
 
     def step():
@@ -2244,6 +2286,482 @@ def viewer_phase(dev, card, fails, fe, mapper):
             fails.append(f"viewer: {route} answered {code}")
 
 
+# --- phase 9: the bucketed layout, strips, views, slabs and the cull ------
+
+BUCKETS = 4
+STRIPS = 4
+
+
+def bucket_cfg(cfg, n_buckets=BUCKETS, share=2):
+    """cfg in the bucketed layout: n_buckets buckets of `share` x the even
+    split of max_pairs each. An even split loses pairs: the rank blocks
+    hold their pairs unevenly (bucket_phase prints the split)."""
+    import dataclasses
+    return dataclasses.replace(
+        cfg, n_buckets=n_buckets,
+        bucket_cap=share * cfg.max_pairs // n_buckets)
+
+
+@torch.no_grad()
+def render_view(st, view, gt, cfg, **kw):
+    """The main path's render (no gradient) of the store from the view."""
+    from legslam_torch.ops.rasterize import render_arrays
+    return render_arrays(
+        st.params.xyz, st.sh(), st.params.lang_feat, st.opacities(),
+        st.scales(), st.params.rotation, st.valid, view.world_view,
+        view.full_proj, view.cam_center, view.tan_fovx, view.tan_fovy,
+        view.width, view.height, gt["bg"], 3, cfg, **kw)
+
+
+def renders_close(a, b, label, fails) -> float:
+    """Two renders at the forward tolerances (colour, depth and t_final
+    atol 3e-5 / rtol 1e-3, LF 2e-4); returns the largest error."""
+    res = {n: close(getattr(a, n), getattr(b, n), 3e-5, 1e-3)
+           for n in ("color", "depth", "final_t")}
+    res["lf"] = close(a.lang_feat, b.lang_feat, 2e-4, 1e-3)
+    for n, (e, ok) in res.items():
+        if not ok:
+            fails.append(f"{label}: {n} outside tolerance (max|err| {e:.3g})")
+    return max(e for e, _ in res.values())
+
+
+def bucket_phase(dev, card, fails, st0, view, gt):
+    """[buckets]: phase 4's scene (st0, the initial store) in the bucketed
+    layout, n_buckets 4 of 2^19 pairs (bucket_cfg's share 2: an even
+    split of the flat max_pairs, 4 of 2^18, loses pairs, and the phase
+    prints how many). Gates: no pair lost to a bucket cap; each bucketed kernel against its plain
+    version at phase 3's size and on the first step's inputs at 1200x680
+    (check_kernels' tolerances); the bucketed render against the flat one
+    at the forward tolerances; 8 steps of the bucketed main path (binning
+    refreshed every 8, no trims: kfin is the flat layout's) launch each
+    kernel once a step. Prints the kernels' CUDA-event times beside the
+    flat layout's on the same store (fresh binnings, timed in turns),
+    their bounds from the bucketed pair arrays, the plain versions' times
+    and the two binnings' times."""
+    from legslam_torch.models import gaussians as G
+    from legslam_torch.ops.cuda import composite as cf
+    from legslam_torch.ops.cuda import composite_bwd as cb
+    out = {}
+    st3, view3, gt3 = make_scene(dev, 320, 192, 20_000, 1 << 15, seed=1)
+    for mm in ("float32", "bfloat16"):
+        drv = StepLoop(G.copy_state(st3), view3, gt3,
+                       bucket_cfg(make_cfg(1 << 16, mm)))
+        binning = drv._binning()
+        fa, ba = capture_kernel_inputs(lambda: drv.step(binning))
+        check_kernels(fa, ba, f"buckets 320x192 {mm}", card, fails)
+    del st3, view3, gt3, drv
+
+    flat_cfg = make_cfg(1 << 20, "bfloat16")
+    bcfg = bucket_cfg(flat_cfg)
+    drv_b = StepLoop(G.copy_state(st0), view, gt, bcfg)
+    bin_b = drv_b._binning()
+    lost = int(bin_b[1])
+    split = bin_b[0].tile_count.sum(0).tolist()
+    even = StepLoop(st0, view, gt, bucket_cfg(flat_cfg, share=1))._binning()
+    lost_even = int(even[1])
+    del even
+    fa_b, ba_b = capture_kernel_inputs(lambda: drv_b.step(bin_b))
+    out["errs"] = check_kernels(fa_b, ba_b, "buckets 1200x680 bf16", card,
+                                fails)
+    drv_f = StepLoop(G.copy_state(st0), view, gt, flat_cfg)
+    fa_f, ba_f = capture_kernel_inputs(lambda: drv_f.step(drv_f._binning()))
+    e_render = renders_close(render_view(st0, view, gt, bcfg),
+                             render_view(st0, view, gt, flat_cfg),
+                             "buckets render", fails)
+    _, _, kfin_f = cf.composite_forward(*fa_f)
+    b_b, b_f = bounds(fa_b, None), bounds(fa_f, kfin_f)
+    with ClockSampler() as clk:
+        t = {}
+        t["fwd"], t["fwd_flat"] = turns_ms(
+            lambda: cf.composite_forward(*fa_b),
+            lambda: cf.composite_forward(*fa_f), 20)
+        t["bwd"], t["bwd_flat"] = turns_ms(
+            lambda: cb.composite_backward(*ba_b),
+            lambda: cb.composite_backward(*ba_f), 10)
+        t["binning"], t["binning_flat"] = turns_ms(
+            drv_b._binning, drv_f._binning, 5)
+    t["fwd_plain"] = event_ms(lambda: cf.composite_forward_plain(*fa_b), 2)
+    t["bwd_plain"] = event_ms(lambda: cb.composite_backward_plain(*ba_b), 2)
+    del drv_f, fa_f, ba_f
+
+    # the bucketed main path: one refresh group of 8 steps
+    loop = StepLoop(G.copy_state(st0), view, gt, bcfg)
+    for fn in (cf.composite_forward, cb.composite_backward):
+        fn.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    binning = loop._binning()
+    losses = [float(loop.step(binning).loss) for _ in range(loop.refresh)]
+    group_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(fwd=cf.composite_forward.launches,
+                    bwd=cb.composite_backward.launches)
+    print(f"[buckets] 1200x680, 200k gaussians, bf16, {BUCKETS} buckets of "
+          f"{bcfg.bucket_cap} pairs ({fa_b[2].shape[0]} pair rows, "
+          f"{int(bin_b[0].num_rendered)} valid, {lost} lost to the caps; "
+          f"pairs a bucket {split}; buckets of {flat_cfg.max_pairs // BUCKETS}"
+          f" would lose {lost_even}); "
+          f"bucketed render vs flat max|err| {e_render:.3g}; kernel times "
+          f"(fresh binnings, same store, in turns): fwd {t['fwd']:.3f} ms "
+          f"(flat {t['fwd_flat']:.3f}; plain {t['fwd_plain']:.3f}; bound "
+          f"{b_b['fwd']['bound_ms']:.3f} by {b_b['fwd']['bound_by']}, flat's "
+          f"{b_f['fwd']['bound_ms']:.3f}), bwd {t['bwd']:.3f} ms (flat "
+          f"{t['bwd_flat']:.3f}; plain {t['bwd_plain']:.3f}; bound "
+          f"{b_b['bwd']['bound_ms']:.3f} by {b_b['bwd']['bound_by']}, flat's "
+          f"{b_f['bwd']['bound_ms']:.3f}); work {b_b['counts']} (flat "
+          f"{b_f['counts']}); binning {t['binning']:.3f} ms (flat "
+          f"{t['binning_flat']:.3f}); 8 bucketed steps {group_ms:.1f} ms, "
+          f"losses {[round(x, 5) for x in losses[::3]]}, launches "
+          f"{launches} [{card}]")
+    print(f"[clocks] buckets timing: {clk.summary()} [{card}]")
+    if lost:
+        fails.append(f"buckets: {lost} pairs lost to the bucket caps")
+    if not all(math.isfinite(x) for x in losses):
+        fails.append("buckets: loss not finite")
+    for k, v in launches.items():
+        if v != loop.refresh:
+            fails.append(f"buckets: {k} launched {v} times in "
+                         f"{loop.refresh} steps")
+    out.update(times=t, bounds=b_b, launches=launches)
+    return out
+
+
+def one_step(st, view, gt, cfg, step_fn=None, **kw):
+    """One main-path train_step (or step_fn with its own targets) on a
+    copy of st; returns (store, aux). From the initial store, Adam's
+    first step moves each parameter by lr * sign(g): the gradients' float
+    atomics leave it as it is unless a gradient sits at rounding noise
+    (two train_steps there agree to 1e-6 on the H100; a store trained a
+    few steps has rotation moments ~6e-8 whose updates the same noise
+    moves by up to 3e-4)."""
+    from legslam_torch.config import OptimizationParams
+    from legslam_torch.mapper.train_step import train_step
+    from legslam_torch.models import gaussians as G
+    st = G.copy_state(st)
+    if step_fn is not None:
+        return step_fn(st)
+    return train_step(
+        st, view.world_view, view.full_proj, view.cam_center, view.tan_fovx,
+        view.tan_fovy, gt["gt_color"], gt["gt_lang_feat"], gt["gt_depth"],
+        gt["mask"], gt["bg"], 9.0, 1.0, width=view.width,
+        height=view.height, active_sh_degree=3, opt=OptimizationParams(),
+        cfg=cfg, max_per_tile=2048, **kw)
+
+
+# a step against train_step: the parameters absolutely
+# (tests/test_spatial.py:96); the Adam moments ((1 - beta1) * g after the
+# first step, so the gradients' scale shows, which the sign-only first
+# update hides) and the densify grad_accum relative to their group's
+# largest value. Two train_steps on the H100 differ by up to 3.5e-5 of
+# that in the LF moments, a 1-view batched tick by 5.6e-4 (float
+# atomics); a strip's H_pad/H rescale left out would be 3.5e-2.
+STEP_ATOL, STEP_RTOL = 5e-5, 4e-3
+
+
+def step_errs(a, b) -> dict:
+    """Largest errors of store a against b after one step: 'params'
+    absolute, 'adam_m' and 'grad_accum' relative to b's largest |value|
+    (the worst group for the moments)."""
+    from legslam_torch.models import gaussians as G
+
+    def rel(x, y):
+        return float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+    return dict(
+        params=max(float((getattr(a.params, n) - getattr(b.params, n))
+                         .abs().max()) for n in G.GROUPS),
+        adam_m=max(rel(getattr(a.adam_m, n), getattr(b.adam_m, n))
+                   for n in G.GROUPS),
+        grad_accum=rel(a.stats.grad_accum, b.stats.grad_accum))
+
+
+def step_ok(errs, l_a, l_b) -> bool:
+    """errs (step_errs) and the two losses within the step tolerances:
+    loss rtol 1e-6, STEP_ATOL on the parameters, STEP_RTOL on the rest."""
+    return (abs(l_a - l_b) <= 1e-6 * abs(l_b)
+            and errs["params"] <= STEP_ATOL
+            and errs["adam_m"] <= STEP_RTOL
+            and errs["grad_accum"] <= STEP_RTOL)
+
+
+def errs_text(errs) -> str:
+    return ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+
+
+def mapper_run(dev, card, fails, label, ds, frames, out_dir, p_slabs=0,
+               **mapper_kw):
+    """Phase 5's room through GaussianMapper with mapper_kw (phase 5's
+    schedule and config, with cfg.p_slabs = p_slabs). Gate: keyframe PSNR
+    3 dB over the initial map's,
+    every kernel launched. Returns (mapper, ms per tick, launches)."""
+    from legslam_torch.config import RasterizeConfig
+    from legslam_torch.ops.cuda import composite as cf
+    from legslam_torch.ops.cuda import composite_bwd as cb
+    from legslam_torch.ops.cuda import sort as cs
+    kernels = dict(composite_fwd=cf.composite_forward,
+                   composite_bwd=cb.composite_backward,
+                   sort_keys=cs.sort_keys, sort_kv=cs.sort_kv)
+    cfg = RasterizeConfig(backend="cuda", mm_dtype="bfloat16", cuda_sort=True,
+                          p_slabs=p_slabs)
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with ClockSampler() as clk:
+        mapper, init, iter_ms, losses, _ = drive_mapper(
+            dev, ds, frames, cfg, out_dir, **mapper_kw)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    psnr = mapper.record_keyframe_metrics("experiment")["psnr"]
+    psnr_init = keyframe_psnr(mapper, init)
+    ms = statistics.median(iter_ms)
+    print(f"[{label}] mapper {mapper_kw} p_slabs {p_slabs} over phase 5's "
+          f"{len(frames)} "
+          f"frames: {mapper.iteration} ticks, {len(mapper.keyframes)} "
+          f"keyframes, num_valid {int(mapper.state.num_valid())}, capacity "
+          f"{mapper.state.capacity}; ms a tick median {ms:.2f} p90 "
+          f"{sorted(iter_ms)[int(0.9 * (len(iter_ms) - 1))]:.2f}; fresh "
+          f"binnings {mapper.fresh_binnings}; launches {launches}; peak "
+          f"memory {peak:.2f} GiB; keyframe PSNR {psnr:.2f} dB (initial map "
+          f"{psnr_init:.2f}) [{card}]")
+    print(f"[clocks] {label} mapper: {clk.summary()} [{card}]")
+    if not psnr >= psnr_init + 3.0:
+        fails.append(f"{label}: PSNR {psnr:.2f} not 3 dB above the initial "
+                     f"map's {psnr_init:.2f}")
+    if not all(math.isfinite(x) for x in losses):
+        fails.append(f"{label}: loss not finite")
+    for k, v in launches.items():
+        if v == 0:
+            fails.append(f"{label}: {k} launched no time")
+    return mapper, ms, launches, peak
+
+
+def strips_phase(dev, card, fails, st0, view, gt, ds, frames, out_dir):
+    """[strips]: the main-path step in STRIPS tile-row strips
+    (parallel/spatial.py; 43 tile rows -> strips of 176 rows, padded to
+    704). Gates: the full render drops no pair to the span cap; each
+    strip's colour and depth equal the full render's rows to 1e-6
+    (tests/test_spatial.py's atol; t_final's bit equality is printed);
+    one step from the initial store st0 agrees with train_step's on the
+    same view (step_ok: the loss, the parameters, the Adam moments and
+    grad_accum), with the same visit counts. Then phase 5's room through
+    GaussianMapper(spatial_strips=4)."""
+    from legslam_torch.parallel import spatial
+    from legslam_torch.ops.rasterize import compute_binning
+    cfg = make_cfg(1 << 20, "bfloat16")
+    layout = spatial.spatial_layout(view.height, cfg.tile_h, STRIPS)
+    p = st0.params
+    span_ov = int(compute_binning(
+        p.xyz, st0.scales(), p.rotation, st0.valid, view.world_view,
+        view.full_proj, view.tan_fovx, view.tan_fovy, view.width,
+        view.height, cfg, opacity=st0.opacities())[0].span_overflow)
+    full = render_view(st0, view, gt, cfg)
+    cys = spatial.strip_offsets(layout)
+    e_c = e_d = 0.0
+    t_equal = True
+    for cy in cys:
+        o = render_view(st0, view, gt, cfg, crop_y=float(cy),
+                        crop_h=layout.h_local)
+        rows = slice(int(cy), min(int(cy) + layout.h_local, view.height))
+        n = rows.stop - rows.start
+        e_c = max(e_c, float((o.color[:n] - full.color[rows]).abs().max()))
+        e_d = max(e_d, float((o.depth[:n] - full.depth[rows]).abs().max()))
+        t_equal &= torch.equal(o.final_t[:n], full.final_t[rows])
+
+    def strip_step(st):
+        pads = [spatial.pad_rows(gt[k], layout.h_padded) for k in
+                ("gt_color", "gt_lang_feat", "gt_depth", "mask")]
+        from legslam_torch.config import OptimizationParams
+        return spatial.spatial_train_step(
+            st, view.world_view, view.full_proj, view.cam_center,
+            view.tan_fovx, view.tan_fovy, *pads, gt["bg"], 9.0, 1.0, cys,
+            width=view.width, height=view.height, h_local=layout.h_local,
+            active_sh_degree=3, opt=OptimizationParams(), cfg=cfg,
+            max_per_tile=2048)
+    sync(dev)
+    t0 = time.perf_counter()
+    st_s, aux_s = one_step(st0, view, gt, cfg, strip_step)
+    sync(dev)
+    strip_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    st_1, aux_1 = one_step(st0, view, gt, cfg)
+    sync(dev)
+    one_ms = (time.perf_counter() - t0) * 1e3
+    errs = step_errs(st_s, st_1)
+    denom_eq = torch.equal(st_s.stats.denom, st_1.stats.denom)
+    l_s, l_1 = float(aux_s.loss), float(aux_1.loss)
+    print(f"[strips] {STRIPS} strips of {layout.h_local} rows (padded "
+          f"{layout.h_padded}), span_overflow {span_ov}: strips vs the full "
+          f"render's rows max|err| colour {e_c:.3g} depth {e_d:.3g}, "
+          f"t_final bit-equal {t_equal}; one step from the initial store: "
+          f"loss {l_s:.7f} (train_step {l_1:.7f}), max err "
+          f"{errs_text(errs)}, denom equal {denom_eq}; step "
+          f"ms strips {strip_ms:.1f} vs one view {one_ms:.1f} (one call "
+          f"each, host clock) [{card}]")
+    if span_ov:
+        fails.append(f"strips: span_overflow {span_ov}")
+    if not (e_c <= 1e-6 and e_d <= 1e-6):
+        fails.append(f"strips: strip rows differ from the full render "
+                     f"(colour {e_c:.3g}, depth {e_d:.3g})")
+    if not (step_ok(errs, l_s, l_1) and denom_eq):
+        fails.append(f"strips: step differs from train_step (loss {l_s:.7f}"
+                     f" vs {l_1:.7f}, {errs_text(errs)}, denom equal "
+                     f"{denom_eq})")
+    del st_s, st_1
+    _, ms, launches, _ = mapper_run(dev, card, fails, "strips", ds, frames,
+                                    out_dir, spatial_strips=STRIPS)
+    return ms, launches
+
+
+def multiview_phase(dev, card, fails, st0, view, gt, ds, frames, out_dir):
+    """[multiview]: a batched tick of one view (parallel/sharded.py) on
+    the initial store against train_step on the same view (step_ok: the
+    loss, the parameters, the Adam moments and grad_accum; the same visit
+    counts: tests/test_mapper_multiview.py:68); then phase 5's room through
+    GaussianMapper(n_views=4), its ms a tick and a view and its peak
+    memory."""
+    from legslam_torch.config import OptimizationParams
+    from legslam_torch.parallel import sharded
+    cfg = make_cfg(1 << 20, "bfloat16")
+
+    def batched(st):
+        batch = sharded.make_view_batch(
+            [view], gt["gt_color"][None], gt["gt_lang_feat"][None],
+            gt["gt_depth"][None], gt["mask"][None])
+        return sharded.batched_train_step(
+            st, batch, gt["bg"], 9.0, 1.0, width=view.width,
+            height=view.height, active_sh_degree=3,
+            opt=OptimizationParams(), cfg=cfg, max_per_tile=2048)
+    st_b, aux_b = one_step(st0, view, gt, cfg, batched)
+    st_1, aux_1 = one_step(st0, view, gt, cfg)
+    errs = step_errs(st_b, st_1)
+    denom_eq = torch.equal(st_b.stats.denom, st_1.stats.denom)
+    l_b, l_1 = float(aux_b.loss), float(aux_1.loss)
+    print(f"[multiview] a batched tick of 1 view vs train_step on the "
+          f"initial store: loss {l_b:.7f} vs {l_1:.7f}, max err "
+          f"{errs_text(errs)}, denom equal {denom_eq} [{card}]")
+    if not (step_ok(errs, l_b, l_1) and denom_eq):
+        fails.append(f"multiview: the 1-view batched tick differs from "
+                     f"train_step (loss {l_b:.7f} vs {l_1:.7f}, "
+                     f"{errs_text(errs)}, denom equal {denom_eq})")
+    del st_b, st_1
+    n = 4
+    mapper, ms, launches, peak = mapper_run(dev, card, fails, "multiview",
+                                            ds, frames, out_dir, n_views=n)
+    print(f"[multiview] {n} views a tick: {ms:.2f} ms a tick, "
+          f"{ms / n:.2f} ms a view, peak {peak:.2f} GiB [{card}]")
+    for k in ("composite_fwd", "composite_bwd"):
+        if launches[k] != n * mapper.iteration:
+            fails.append(f"multiview: {k} launched {launches[k]} times in "
+                         f"{mapper.iteration} ticks of {n} views")
+    return ms, launches
+
+
+def step_ms(st, view, gt, cfg, steps=6, **kw) -> float:
+    """Median host ms of main-path train_steps with fresh binnings (kw to
+    train_step), each ending in a synchronise; the first is a warm-up."""
+    from legslam_torch.config import OptimizationParams
+    from legslam_torch.mapper.train_step import train_step
+    from legslam_torch.models import gaussians as G
+    st = G.copy_state(st)
+    ms = []
+    for i in range(steps):
+        sync(st.valid.device)
+        t0 = time.perf_counter()
+        st, _ = train_step(
+            st, view.world_view, view.full_proj, view.cam_center,
+            view.tan_fovx, view.tan_fovy, gt["gt_color"], gt["gt_lang_feat"],
+            gt["gt_depth"], gt["mask"], gt["bg"], float(i + 1), 1.0,
+            width=view.width, height=view.height, active_sh_degree=3,
+            opt=OptimizationParams(), cfg=cfg, max_per_tile=2048, **kw)
+        sync(st.valid.device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms[1:])
+
+
+def slabs_cull_phase(dev, card, fails, st0, view, gt, ds, frames, out_dir):
+    """[slabs], [cull]: the main path's forward with p_slabs=8 equals
+    p_slabs=0 bit for bit (the prologue runs on 7 of 8 slabs: 200k live
+    rows of 262144); with ellipse_cull=False it equals the culled render
+    at the forward tolerances and bins more pairs. Each one's step time
+    beside the default's (fresh binnings, in turns). Then phase 5's room
+    through GaussianMapper with p_slabs=8 (mapper_run's gates), and more
+    ticks of that mapper in turns: the watermark from its bookkeeping (one
+    host read a store surgery), and read on the host every step
+    (train_step's route without a hint); ms a tick of each."""
+    import dataclasses
+
+    from legslam_torch.ops.slabs import prefix_rows, watermark
+    cfg = make_cfg(1 << 20, "bfloat16")
+    slab = dataclasses.replace(cfg, p_slabs=8)
+    nocull = dataclasses.replace(cfg, ellipse_cull=False)
+    base = render_view(st0, view, gt, cfg)
+    o_s = render_view(st0, view, gt, slab)
+    same = all(torch.equal(getattr(o_s, n), getattr(base, n)) for n in
+               ("color", "depth", "final_t", "lang_feat", "radii"))
+    rows = prefix_rows(watermark(st0.valid), st0.capacity, 8)
+    o_c = render_view(st0, view, gt, nocull)
+    e_c = renders_close(o_c, base, "cull", fails)
+    n_cull, n_all = int(base.num_rendered), int(o_c.num_rendered)
+    hint = int(watermark(st0.valid))
+    with ClockSampler() as clk:
+        ms = dict(default=[step_ms(st0, view, gt, cfg)])
+        ms["p_slabs"] = step_ms(st0, view, gt, slab, watermark_hint=hint)
+        ms["no_cull"] = step_ms(st0, view, gt, nocull)
+        ms["default"].append(step_ms(st0, view, gt, cfg))
+    print(f"[slabs] p_slabs 8: the prologue, Adam and the statistics on "
+          f"{rows} of {st0.capacity} rows; forward equal to p_slabs 0 bit "
+          f"for bit: {same}; step ms (fresh binnings, median of 5, in "
+          f"turns) {ms['p_slabs']:.2f}, default "
+          f"{[round(x, 2) for x in ms['default']]} [{card}]")
+    print(f"[cull] ellipse_cull False: {n_all} pairs vs {n_cull} culled; "
+          f"render vs culled max|err| {e_c:.3g}; step ms "
+          f"{ms['no_cull']:.2f} [{card}]")
+    print(f"[clocks] slabs/cull steps: {clk.summary()} [{card}]")
+    if not same:
+        fails.append("slabs: the p_slabs=8 forward differs from p_slabs=0")
+    if not n_all > n_cull:
+        fails.append(f"cull: {n_all} pairs without the cull, not more than "
+                     f"{n_cull}")
+    # the mapper's loop, blocks of ticks with one synchronise at the end
+    # (drive_mapper syncs every tick, which would hide a host read)
+    mapper = mapper_run(dev, card, fails, "slabs", ds, frames, out_dir,
+                        p_slabs=8)[0]
+    tick = dict(bookkeeping=[], every_step=[])
+    for route in ("bookkeeping", "every_step") * 2 + \
+            ("every_step", "bookkeeping") * 2:
+        if route == "every_step":
+            mapper._watermark = lambda: None   # train_step reads it
+        else:
+            mapper.__dict__.pop("_watermark", None)
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(24):
+            mapper.train_iteration()
+        sync(dev)
+        tick[route].append((time.perf_counter() - t0) * 1e3 / 24)
+    mapper.__dict__.pop("_watermark", None)
+    print(f"[slabs] mapper p_slabs 8, ms a tick over blocks of 24 ticks "
+          f"(one synchronise a block, in turns): watermark from the "
+          f"mapper's bookkeeping {[round(x, 3) for x in tick['bookkeeping']]}"
+          f", read on the host every step "
+          f"{[round(x, 3) for x in tick['every_step']]} [{card}]")
+    ms["mapper_tick"] = tick
+    return ms
+
+
+def store_phase(dev, card, fails, ds):
+    """shard_store on one card: with no process group the mapper takes
+    the one-device path (the whole store), as JAX builds no mesh for one
+    device."""
+    from legslam_torch.mapper.mapper import GaussianMapper
+    from legslam_torch.slam.interface import OperationQueue
+    m = GaussianMapper(OperationQueue(), ds.intrinsics, shard_store=True,
+                       device=dev)
+    plain = m._shard_group is None and m._group is None
+    print(f"[store] GaussianMapper(shard_store=True) on one card: the "
+          f"one-device path (no group): {plain} [{card}]")
+    if not plain:
+        fails.append("store: shard_store on one card took a group")
+
+
 def build_phase():
     from legslam_torch import _build
     names = ("composite_fwd", "composite_bwd", "sort")
@@ -2411,7 +2929,6 @@ def main() -> int:
     t_phase = time.perf_counter()
     system_phase(dev, card, fails, str(out_dir) + "_system", ds, frames, enc)
     pca = enc.pca_params
-    del ds, frames
     torch.cuda.empty_cache()
     phase_s["system"] = time.perf_counter() - t_phase
 
@@ -2441,6 +2958,21 @@ def main() -> int:
     t_phase = time.perf_counter()
     mono_phase(dev, card, fails, str(out_dir) + "_mono")
     phase_s["mono"] = time.perf_counter() - t_phase
+
+    # phase 9: the bucketed layout, strips, views, the slab skip, the cull
+    t_phase = time.perf_counter()
+    st, view, gt = make_scene(dev, 1200, 680, 200_000, 1 << 18, seed=0)
+    bucketed = bucket_phase(dev, card, fails, st, view, gt)
+    strips_phase(dev, card, fails, st, view, gt, ds, frames,
+                 str(out_dir) + "_strips")
+    multiview_phase(dev, card, fails, st, view, gt, ds, frames,
+                    str(out_dir) + "_views")
+    slabs_cull_phase(dev, card, fails, st, view, gt, ds, frames,
+                     str(out_dir) + "_slabs")
+    store_phase(dev, card, fails, ds)
+    del st, view, gt, ds, frames
+    torch.cuda.empty_cache()
+    phase_s["phase9"] = time.perf_counter() - t_phase
     print(f"[phases] seconds {({k: round(v, 1) for k, v in phase_s.items()})}"
           f", total {sum(phase_s.values()):.1f} [{card}]")
 
@@ -2450,6 +2982,7 @@ def main() -> int:
              "legslam_tpu/ops/pallas/composite.py:153"),
             ("bwd", "composite_bwd", "legslam_torch/csrc/composite_bwd.cu",
              "legslam_tpu/ops/pallas/composite_bwd.py:96")):
+        bt = bucketed["times"]
         rows.append(dict(name=name, route="cuda", source=src, replaces=tpu,
                          launches=launches[k],
                          query_launches=query_launches[name],
@@ -2457,7 +2990,13 @@ def main() -> int:
                          max_abs_err=errs[k],
                          ms=times[k], plain_ms=times[f"{k}_plain"],
                          bound_ms=b[k]["bound_ms"],
-                         bound_by=b[k]["bound_by"], library_ms=None))
+                         bound_by=b[k]["bound_by"], library_ms=None,
+                         bucketed_launches=bucketed["launches"][k],
+                         bucketed_max_abs_err=bucketed["errs"][k],
+                         bucketed_ms=bt[k], bucketed_flat_ms=bt[f"{k}_flat"],
+                         bucketed_plain_ms=bt[f"{k}_plain"],
+                         bucketed_bound_ms=bucketed["bounds"][k]["bound_ms"],
+                         bucketed_bound_by=bucketed["bounds"][k]["bound_by"]))
     for name, tpu in (("sort_keys", "legslam_tpu/ops/pallas/sort.py:111"),
                       ("sort_kv", "legslam_tpu/ops/pallas/sort.py:116")):
         rows.append(dict(name=name, route="cuda",

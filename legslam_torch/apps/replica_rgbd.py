@@ -112,11 +112,28 @@ def main(argv=None):
                         help="pair feature type of the cuda kernels "
                         "(bfloat16|float32; default bfloat16 on cuda)")
     parser.add_argument("--n-views", type=int, default=1,
-                        help="keyframes per mapping tick (only 1 is ported)")
+                        help="keyframes per mapping tick (a batched step; "
+                             "split over the ranks of a torch.distributed "
+                             "group when one is set up)")
     parser.add_argument("--spatial-strips", type=int, default=1,
-                        help="tile-row strips per view (only 1 is ported)")
+                        help="tile-row strips each view renders in (split "
+                             "over the ranks of a group when one is set "
+                             "up)")
     parser.add_argument("--shard-store", action="store_true",
-                        help="capacity-shard the store (not ported yet)")
+                        help="capacity-shard the store over the ranks of a "
+                             "group (the whole store without one)")
+    parser.add_argument("--n-buckets", type=int, default=1,
+                        help="rank-block buckets of the binning (cuda "
+                             "backend; 1 = flat)")
+    parser.add_argument("--bucket-cap", type=int, default=None,
+                        help="pair capacity of each bucket (a multiple of "
+                             "256)")
+    parser.add_argument("--p-slabs", type=int, default=0,
+                        help="watermark slab skip of the per-gaussian work "
+                             "(0 = off)")
+    parser.add_argument("--no-ellipse-cull", action="store_true",
+                        help="emit every pair of the opacity-aware rect "
+                             "(no tile-ellipse cull)")
     parser.add_argument("--binning-refresh", type=int, default=4,
                         help="per-view binning cache interval (1 = exact)")
     parser.add_argument("--profile-dir", default=None,
@@ -137,9 +154,12 @@ def main(argv=None):
     mm = args.mm_dtype or ("bfloat16" if backend == "cuda" else "float32")
     extra = {k: v for k, v in (("chunk", args.chunk),
                                ("max_span_x", args.max_span_x),
-                               ("max_span_y", args.max_span_y)) if v}
+                               ("max_span_y", args.max_span_y),
+                               ("bucket_cap", args.bucket_cap)) if v}
     cfg = RasterizeConfig(backend=backend, tile_batch=args.tile_batch,
-                          mm_dtype=mm, **extra)
+                          mm_dtype=mm, n_buckets=args.n_buckets,
+                          p_slabs=args.p_slabs,
+                          ellipse_cull=not args.no_ellipse_cull, **extra)
     opt = mp = None
     cam_intr = None
     if args.cfg:

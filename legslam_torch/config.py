@@ -193,12 +193,40 @@ class RasterizeConfig:
     # the order of a stable sort, so the Binning is the same bit for bit
     # either way.
     cuda_sort: bool = True
+    # rank-block bucketed binning ("cuda" backend): the depth ranks split
+    # into n_buckets contiguous blocks, each block's pairs sorted on its
+    # own, and the compositing kernels walk a tile's n_buckets ranges in
+    # order (ops/binning.py bin_gaussians_bucketed); 1 = the flat layout
+    n_buckets: int = 1
+    # pair capacity of each bucket (a multiple of 256); only read when
+    # n_buckets > 1. The kernels read n_buckets * bucket_cap pair rows.
+    bucket_cap: int = 1 << 16
+    # watermark slab skip of the per-gaussian work (the render prologue,
+    # Adam, the densify statistics): it runs on the prefix of whole
+    # capacity / p_slabs slabs that covers every valid row
+    # (ops/slabs.py). Exact: rows above the watermark are invalid, with
+    # zero moments and zero gradients. 0 = off; a capacity that p_slabs
+    # does not divide runs in full.
+    p_slabs: int = 0
+    # the exact anisotropic tile-ellipse pair cull in binning
+    # (_corner_cull): render-exact, since a culled pair cannot clear the
+    # kernels' alpha keep mask anywhere in its tile; False emits every
+    # pair of the opacity-aware rect
+    ellipse_cull: bool = True
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
             raise ValueError(f"backend {self.backend!r} not in {BACKENDS}")
         if self.mm_dtype not in MM_DTYPES:
             raise ValueError(f"mm_dtype {self.mm_dtype!r} not in {MM_DTYPES}")
+        if self.n_buckets < 1:
+            raise ValueError(f"n_buckets must be >= 1, got {self.n_buckets}")
+        if self.n_buckets > 1 and (self.bucket_cap <= 0 or
+                                   self.bucket_cap % 256):
+            raise ValueError("bucket_cap must be a positive multiple of "
+                             f"256, got {self.bucket_cap}")
+        if self.p_slabs < 0:
+            raise ValueError(f"p_slabs must be >= 0, got {self.p_slabs}")
 
     def span(self) -> int:
         return self.max_span_x * self.max_span_y

@@ -50,6 +50,15 @@
 // element and block (at most 8 per element for a 16x128 tile), so the
 // order changes the result by a few ulp of the largest partial only; a
 // pair no pixel composites gets no add and reads 0.
+//
+// Bucketed layout (n_buckets > 1; composite_bwd.py:96-101, :225): a tile
+// has n_buckets ranges, its pairs front to back when taken in order. The
+// batches of 16 run over each range in turn, each batch inside one range
+// (a range starts at its own offset, and the rows between two ranges are
+// sentinels); a pixel's log T_all and its prefix of dw * w carry from one
+// range to the next, so the suffix S_k stays <gout, acc> less the prefix
+// over every earlier pair of the tile. A block stops once all its pixels
+// have terminated.
 #include "composite_common.cuh"
 
 namespace legslam {
@@ -98,9 +107,9 @@ composite_bwd_kernel(const int* __restrict__ tile_start,
                      const float* __restrict__ gout,
                      const float* __restrict__ gtfin,
                      const float* __restrict__ tfin,
-                     const float* __restrict__ acc, int tile_w, int tile_h,
-                     int ntx, float* __restrict__ dgeo,
-                     float* __restrict__ dfeats) {
+                     const float* __restrict__ acc, int n_buckets,
+                     int tile_w, int tile_h, int ntx,
+                     float* __restrict__ dgeo, float* __restrict__ dfeats) {
   using L = Smem<NCH>;
   constexpr int kTiles = NCH / 8;  // 8-channel mma tiles
   extern __shared__ float4 smem4[];
@@ -116,9 +125,11 @@ composite_bwd_kernel(const int* __restrict__ tile_start,
   unsigned* s_kmask = reinterpret_cast<unsigned*>(smem + L::kmask);
 
   const int t = blockIdx.y;
-  const int start = tile_start[t];
-  const int end = start + tile_count[t];
-  if (start >= end) return;  // the whole block: no pair, no gradient
+  const int* rs = tile_start + static_cast<size_t>(t) * n_buckets;
+  const int* rc = tile_count + static_cast<size_t>(t) * n_buckets;
+  bool any_pair = false;
+  for (int b = 0; b < n_buckets; ++b) any_pair |= rc[b] > 0;
+  if (!any_pair) return;  // the whole block: no pair, no gradient
   const int npix = tile_w * tile_h;
   const TilePixel tp = stripe_pixel(blockIdx.x, threadIdx.x, tile_w, tile_h);
   const int pix = tp.index;
@@ -167,177 +178,192 @@ composite_bwd_kernel(const int* __restrict__ tile_start,
   float s_prefix = 0.f;  // inclusive prefix of dw * w
   bool done = !live;
 
-  for (int lo = start; lo < end; lo += kBatch) {
-    // also the barrier before the shared batch is overwritten
-    if (__syncthreads_and(done)) break;
-    const int nb = min(kBatch, end - lo);
-    for (int i = threadIdx.x; i < nb * 6; i += kThreads) {
-      s_geo[i / 6][i % 6] = __ldg(geo + static_cast<size_t>(lo + i / 6) * kGeoRows + i % 6);
-    }
-    for (int i = threadIdx.x; i < nb * NCH; i += kThreads) {
-      s_feat[i / NCH][i % NCH] =
-          load_feat(feats + static_cast<size_t>(lo) * NCH + i);
-    }
-    if (threadIdx.x < kBatch) s_any[threadIdx.x] = 0;
-    __syncthreads();
+  bool stop = false;  // every pixel of the block has terminated
+  for (int bk = 0; bk < n_buckets && !stop; ++bk) {
+    const int start = rs[bk];
+    const int end = start + rc[bk];
+    for (int lo = start; lo < end; lo += kBatch) {
+      // also the barrier before the shared batch is overwritten
+      if (__syncthreads_and(done)) {
+        stop = true;
+        break;
+      }
+      const int nb = min(kBatch, end - lo);
+      for (int i = threadIdx.x; i < nb * 6; i += kThreads) {
+        s_geo[i / 6][i % 6] = __ldg(
+            geo + static_cast<size_t>(lo + i / 6) * kGeoRows + i % 6);
+      }
+      for (int i = threadIdx.x; i < nb * NCH; i += kThreads) {
+        s_feat[i / NCH][i % NCH] =
+            load_feat(feats + static_cast<size_t>(lo) * NCH + i);
+      }
+      if (threadIdx.x < kBatch) s_any[threadIdx.x] = 0;
+      __syncthreads();
 
-    // phase 1: per-pixel w and dG of each pair (zero past the batch), with
-    // the pixel's gout row in registers for the batch only: phase 2 needs
-    // the registers
-    float g[NCH];
+      // phase 1: per-pixel w and dG of each pair (zero past the batch), with
+      // the pixel's gout row in registers for the batch only: phase 2 needs
+      // the registers
+      float g[NCH];
 #pragma unroll
-    for (int c = 0; c < NCH; c += 4) {
-      const float4 gv =
-          *reinterpret_cast<const float4*>(s_g + g_index<NCH>(threadIdx.x, c));
-      g[c] = gv.x; g[c + 1] = gv.y; g[c + 2] = gv.z; g[c + 3] = gv.w;
-    }
-    bool any_w = false;
-    for (int j = 0; j < kBatch; ++j) {
-      float w = 0.f;
-      float dg = 0.f;
-      if (j < nb && !done) {
-        const float dx = s_geo[j][kGeoX] - px;
-        const float dy = s_geo[j][kGeoY] - py;
-        const float power =
-            -0.5f * (s_geo[j][kGeoA] * dx * dx + s_geo[j][kGeoC] * dy * dy) -
-            s_geo[j][kGeoB] * dx * dy;
-        const float g_exp = expf(fminf(power, 0.f));
-        const float alpha = fminf(s_geo[j][kGeoOp] * g_exp, kAlphaMax);
-        if (power <= 0.f && alpha >= kAlphaMin) {
-          const float log1m = log1pf(-alpha);
-          const float log_t_exc = log_t_all;
-          log_t_all += log1m;
-          if (log_t_all >= kLogTerm) {
-            const float t_exc = expf(log_t_exc);
-            w = alpha * t_exc;
-            float dw = 0.f;
+      for (int c = 0; c < NCH; c += 4) {
+        const float4 gv =
+            *reinterpret_cast<const float4*>(
+                s_g + g_index<NCH>(threadIdx.x, c));
+        g[c] = gv.x; g[c + 1] = gv.y; g[c + 2] = gv.z; g[c + 3] = gv.w;
+      }
+      bool any_w = false;
+      for (int j = 0; j < kBatch; ++j) {
+        float w = 0.f;
+        float dg = 0.f;
+        if (j < nb && !done) {
+          const float dx = s_geo[j][kGeoX] - px;
+          const float dy = s_geo[j][kGeoY] - py;
+          const float power =
+              -0.5f * (s_geo[j][kGeoA] * dx * dx + s_geo[j][kGeoC] * dy * dy) -
+              s_geo[j][kGeoB] * dx * dy;
+          const float g_exp = expf(fminf(power, 0.f));
+          const float alpha = fminf(s_geo[j][kGeoOp] * g_exp, kAlphaMax);
+          if (power <= 0.f && alpha >= kAlphaMin) {
+            const float log1m = log1pf(-alpha);
+            const float log_t_exc = log_t_all;
+            log_t_all += log1m;
+            if (log_t_all >= kLogTerm) {
+              const float t_exc = expf(log_t_exc);
+              w = alpha * t_exc;
+              float dw = 0.f;
 #pragma unroll
-            for (int c = 0; c < NCH; ++c) dw = fmaf(g[c], s_feat[j][c], dw);
-            s_prefix += dw * w;
-            const float s_k = stot - s_prefix;
-            const float dalpha =
-                dw * t_exc - __fdividef(s_k + gt_term, 1.f - alpha);
-            dg = g_exp * dalpha;
-            s_any[j] = 1;
-            any_w = true;
+              for (int c = 0; c < NCH; ++c) dw = fmaf(g[c], s_feat[j][c], dw);
+              s_prefix += dw * w;
+              const float s_k = stot - s_prefix;
+              const float dalpha =
+                  dw * t_exc - __fdividef(s_k + gt_term, 1.f - alpha);
+              dg = g_exp * dalpha;
+              s_any[j] = 1;
+              any_w = true;
+            }
           }
         }
+        s_w[j][threadIdx.x] = w;
+        s_dg[j][threadIdx.x] = dg;
       }
-      s_w[j][threadIdx.x] = w;
-      s_dg[j][threadIdx.x] = dg;
-    }
-    // bit l of s_kmask[v]: pixel 32 v + l has a weight in this batch
-    const unsigned ballot = __ballot_sync(0xffffffffu, any_w);
-    if (lane == 0) s_kmask[warp] = ballot;
-    if (!done && log_t_all < kLogTerm) done = true;
-    __syncthreads();
-    unsigned block_any = 0;
+      // bit l of s_kmask[v]: pixel 32 v + l has a weight in this batch
+      const unsigned ballot = __ballot_sync(0xffffffffu, any_w);
+      if (lane == 0) s_kmask[warp] = ballot;
+      if (!done && log_t_all < kLogTerm) done = true;
+      __syncthreads();
+      unsigned block_any = 0;
 #pragma unroll
-    for (int v = 0; v < kWarps; ++v) block_any |= s_kmask[v];
-    if (!block_any) continue;  // no pair of the batch reaches the block
+      for (int v = 0; v < kWarps; ++v) block_any |= s_kmask[v];
+      if (!block_any) continue;  // no pair of the batch reaches the block
 
-    // phase 2a: the moments, one warp per pair, lanes over pixels
-    for (int j = warp; j < nb; j += kWarps) {
-      if (!s_any[j]) continue;
-      const float gx = s_geo[j][kGeoX];
-      const float gy = s_geo[j][kGeoY];
-      float m0 = 0.f, mx = 0.f, my = 0.f, mxx = 0.f, myy = 0.f, mxy = 0.f;
+      // phase 2a: the moments, one warp per pair, lanes over pixels
+      for (int j = warp; j < nb; j += kWarps) {
+        if (!s_any[j]) continue;
+        const float gx = s_geo[j][kGeoX];
+        const float gy = s_geo[j][kGeoY];
+        float m0 = 0.f, mx = 0.f, my = 0.f, mxx = 0.f, myy = 0.f, mxy = 0.f;
 #pragma unroll
-      for (int i = 0; i < kThreads / 32; ++i) {
-        const int p = lane + 32 * i;
-        const float d = s_dg[j][p];
-        const float dx = gx - s_px[p];
-        const float dy = gy - s_py[p];
-        const float ddx = d * dx;
-        const float ddy = d * dy;
-        m0 += d;
-        mx += ddx;
-        my += ddy;
-        mxx = fmaf(ddx, dx, mxx);
-        myy = fmaf(ddy, dy, myy);
-        mxy = fmaf(ddx, dy, mxy);
-      }
+        for (int i = 0; i < kThreads / 32; ++i) {
+          const int p = lane + 32 * i;
+          const float d = s_dg[j][p];
+          const float dx = gx - s_px[p];
+          const float dy = gy - s_py[p];
+          const float ddx = d * dx;
+          const float ddy = d * dy;
+          m0 += d;
+          mx += ddx;
+          my += ddy;
+          mxx = fmaf(ddx, dx, mxx);
+          myy = fmaf(ddy, dy, myy);
+          mxy = fmaf(ddx, dy, mxy);
+        }
 #pragma unroll
-      for (int o = 16; o > 0; o /= 2) {
-        m0 += __shfl_xor_sync(0xffffffffu, m0, o);
-        mx += __shfl_xor_sync(0xffffffffu, mx, o);
-        my += __shfl_xor_sync(0xffffffffu, my, o);
-        mxx += __shfl_xor_sync(0xffffffffu, mxx, o);
-        myy += __shfl_xor_sync(0xffffffffu, myy, o);
-        mxy += __shfl_xor_sync(0xffffffffu, mxy, o);
+        for (int o = 16; o > 0; o /= 2) {
+          m0 += __shfl_xor_sync(0xffffffffu, m0, o);
+          mx += __shfl_xor_sync(0xffffffffu, mx, o);
+          my += __shfl_xor_sync(0xffffffffu, my, o);
+          mxx += __shfl_xor_sync(0xffffffffu, mxx, o);
+          myy += __shfl_xor_sync(0xffffffffu, myy, o);
+          mxy += __shfl_xor_sync(0xffffffffu, mxy, o);
+        }
+        if (lane == 0) {
+          const float op = s_geo[j][kGeoOp];
+          const float ca = s_geo[j][kGeoA];
+          const float cb = s_geo[j][kGeoB];
+          const float cc = s_geo[j][kGeoC];
+          const float sx = op * mx;
+          const float sy = op * my;
+          float* d = dgeo + static_cast<size_t>(lo + j) * kGeoRows;
+          atomicAdd(d + kGeoX, -(ca * sx) - cb * sy);
+          atomicAdd(d + kGeoY, -(cc * sy) - cb * sx);
+          atomicAdd(d + kGeoA, -0.5f * op * mxx);
+          atomicAdd(d + kGeoB, -op * mxy);
+          atomicAdd(d + kGeoC, -0.5f * op * myy);
+          atomicAdd(d + kGeoOp, m0);
+        }
       }
-      if (lane == 0) {
-        const float op = s_geo[j][kGeoOp];
-        const float ca = s_geo[j][kGeoA];
-        const float cb = s_geo[j][kGeoB];
-        const float cc = s_geo[j][kGeoC];
-        const float sx = op * mx;
-        const float sy = op * my;
-        float* d = dgeo + static_cast<size_t>(lo + j) * kGeoRows;
-        atomicAdd(d + kGeoX, -(ca * sx) - cb * sy);
-        atomicAdd(d + kGeoY, -(cc * sy) - cb * sx);
-        atomicAdd(d + kGeoA, -0.5f * op * mxx);
-        atomicAdd(d + kGeoB, -op * mxy);
-        atomicAdd(d + kGeoC, -0.5f * op * myy);
-        atomicAdd(d + kGeoOp, m0);
-      }
-    }
 
-    // phase 2b: dfeats = W^T G on the tensor cores, 3xTF32. Each warp
-    // takes its own 32 pixels, as 4 k-steps of 8 (those with a weight),
-    // into [16 pairs x 8 channels] tiles of all the channels.
-    float d[kTiles][4];
-#pragma unroll
-    for (int n = 0; n < kTiles; ++n) d[n][0] = d[n][1] = d[n][2] = d[n][3] = 0.f;
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      if (!((s_kmask[warp] >> (8 * s)) & 0xffu)) continue;
-      const int k0 = 32 * warp + 8 * s;
-      uint32_t ah[4], al[4];
-      split_tf32(s_w[gid][k0 + tig], ah[0], al[0]);
-      split_tf32(s_w[gid + 8][k0 + tig], ah[1], al[1]);
-      split_tf32(s_w[gid][k0 + tig + 4], ah[2], al[2]);
-      split_tf32(s_w[gid + 8][k0 + tig + 4], ah[3], al[3]);
+      // phase 2b: dfeats = W^T G on the tensor cores, 3xTF32. Each warp
+      // takes its own 32 pixels, as 4 k-steps of 8 (those with a weight),
+      // into [16 pairs x 8 channels] tiles of all the channels.
+      float d[kTiles][4];
 #pragma unroll
       for (int n = 0; n < kTiles; ++n) {
-        uint32_t bh[2], bl[2];
-        split_tf32(s_g[g_index<NCH>(k0 + tig, 8 * n + gid)], bh[0], bl[0]);
-        split_tf32(s_g[g_index<NCH>(k0 + tig + 4, 8 * n + gid)], bh[1], bl[1]);
-        mma_tf32(d[n], al, bh);
-        mma_tf32(d[n], ah, bl);
-        mma_tf32(d[n], ah, bh);
+        d[n][0] = d[n][1] = d[n][2] = d[n][3] = 0.f;
       }
-    }
-    // the warps' partials over w, dg and feat, once every warp is past
-    // them; then summed in warp order, one atomic per element and block
-    __syncthreads();
-    float* part = smem + L::part + warp * kBatch * NCH;
 #pragma unroll
-    for (int n = 0; n < kTiles; ++n) {
-      // fragment rows gid and gid + 8, columns 2 tig and 2 tig + 1
-      const int c = 8 * n + 2 * tig;
-      *reinterpret_cast<float2*>(part + gid * NCH + c) =
-          make_float2(d[n][0], d[n][1]);
-      *reinterpret_cast<float2*>(part + (gid + 8) * NCH + c) =
-          make_float2(d[n][2], d[n][3]);
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < kBatch * NCH; e += kThreads) {
-      const int j = e / NCH;
-      if (j >= nb || !s_any[j]) continue;
-      float v = 0.f;
+      for (int s = 0; s < 4; ++s) {
+        if (!((s_kmask[warp] >> (8 * s)) & 0xffu)) continue;
+        const int k0 = 32 * warp + 8 * s;
+        uint32_t ah[4], al[4];
+        split_tf32(s_w[gid][k0 + tig], ah[0], al[0]);
+        split_tf32(s_w[gid + 8][k0 + tig], ah[1], al[1]);
+        split_tf32(s_w[gid][k0 + tig + 4], ah[2], al[2]);
+        split_tf32(s_w[gid + 8][k0 + tig + 4], ah[3], al[3]);
 #pragma unroll
-      for (int u = 0; u < kWarps; ++u) v += smem[L::part + u * kBatch * NCH + e];
-      if (v != 0.f) atomicAdd(dfeats + static_cast<size_t>(lo) * NCH + e, v);
+        for (int n = 0; n < kTiles; ++n) {
+          uint32_t bh[2], bl[2];
+          split_tf32(s_g[g_index<NCH>(k0 + tig, 8 * n + gid)], bh[0], bl[0]);
+          split_tf32(s_g[g_index<NCH>(k0 + tig + 4, 8 * n + gid)], bh[1],
+                     bl[1]);
+          mma_tf32(d[n], al, bh);
+          mma_tf32(d[n], ah, bl);
+          mma_tf32(d[n], ah, bh);
+        }
+      }
+      // the warps' partials over w, dg and feat, once every warp is past
+      // them; then summed in warp order, one atomic per element and block
+      __syncthreads();
+      float* part = smem + L::part + warp * kBatch * NCH;
+#pragma unroll
+      for (int n = 0; n < kTiles; ++n) {
+        // fragment rows gid and gid + 8, columns 2 tig and 2 tig + 1
+        const int c = 8 * n + 2 * tig;
+        *reinterpret_cast<float2*>(part + gid * NCH + c) =
+            make_float2(d[n][0], d[n][1]);
+        *reinterpret_cast<float2*>(part + (gid + 8) * NCH + c) =
+            make_float2(d[n][2], d[n][3]);
+      }
+      __syncthreads();
+      for (int e = threadIdx.x; e < kBatch * NCH; e += kThreads) {
+        const int j = e / NCH;
+        if (j >= nb || !s_any[j]) continue;
+        float v = 0.f;
+#pragma unroll
+        for (int u = 0; u < kWarps; ++u) {
+          v += smem[L::part + u * kBatch * NCH + e];
+        }
+        if (v != 0.f) atomicAdd(dfeats + static_cast<size_t>(lo) * NCH + e, v);
+      }
     }
   }
 }
 
 template <int NCH, typename FeatT>
 int launch(const int* tile_start, const int* tile_count, const float* geo,
-           const void* feats, int ntiles, int tile_w, int tile_h, int ntx,
-           const float* gout, const float* gtfin, const float* tfin,
-           const float* acc, float* dgeo, float* dfeats,
+           const void* feats, int ntiles, int n_buckets, int tile_w,
+           int tile_h, int ntx, const float* gout, const float* gtfin,
+           const float* tfin, const float* acc, float* dgeo, float* dfeats,
            cudaStream_t stream) {
   const auto kernel = composite_bwd_kernel<NCH, FeatT>;
   const int smem = static_cast<int>(sizeof(float) * Smem<NCH>::words);
@@ -354,37 +380,41 @@ int launch(const int* tile_start, const int* tile_count, const float* geo,
   const dim3 grid = stripe_grid(ntiles, tile_w, tile_h);
   kernel<<<grid, kThreads, smem, stream>>>(
       tile_start, tile_count, geo, static_cast<const FeatT*>(feats), gout,
-      gtfin, tfin, acc, tile_w, tile_h, ntx, dgeo, dfeats);
+      gtfin, tfin, acc, n_buckets, tile_w, tile_h, ntx, dgeo, dfeats);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace legslam
 
+// tile_start / tile_count [ntiles * n_buckets], bucket-major per tile;
 // gout/acc [ntiles, tile_h*tile_w, nch] f32, gtfin/tfin [ntiles,
 // tile_h*tile_w] f32; dgeo [N, 8] and dfeats [N, nch] f32, zeroed by the
 // caller. Returns a cudaError_t, -1 for a width the kernel is not
-// compiled for, or -2 for a tile height that does not divide 256.
+// compiled for, -2 for a tile height that does not divide 256, or -3 for
+// a bucket count below 1.
 extern "C" int legslam_composite_bwd(const int* tile_start,
                                      const int* tile_count, const float* geo,
                                      const void* feats, int feats_bf16,
-                                     int nch, int ntiles, int tile_w,
-                                     int tile_h, int ntx, const float* gout,
-                                     const float* gtfin, const float* tfin,
-                                     const float* acc, float* dgeo,
-                                     float* dfeats, void* stream) {
+                                     int nch, int ntiles, int n_buckets,
+                                     int tile_w, int tile_h, int ntx,
+                                     const float* gout, const float* gtfin,
+                                     const float* tfin, const float* acc,
+                                     float* dgeo, float* dfeats,
+                                     void* stream) {
   using namespace legslam;
   if (ntiles == 0) return 0;
   if (tile_h <= 0 || kThreads % tile_h) return kUnsupportedTile;
+  if (n_buckets < 1) return kUnsupportedBuckets;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (feats_bf16) {
     LEGSLAM_DISPATCH_NCH(nch, return launch<NCH, __nv_bfloat16>(
-        tile_start, tile_count, geo, feats, ntiles, tile_w, tile_h, ntx,
-        gout, gtfin, tfin, acc, dgeo, dfeats, s));
+        tile_start, tile_count, geo, feats, ntiles, n_buckets, tile_w,
+        tile_h, ntx, gout, gtfin, tfin, acc, dgeo, dfeats, s));
   } else {
     LEGSLAM_DISPATCH_NCH(nch, return launch<NCH, float>(
-        tile_start, tile_count, geo, feats, ntiles, tile_w, tile_h, ntx,
-        gout, gtfin, tfin, acc, dgeo, dfeats, s));
+        tile_start, tile_count, geo, feats, ntiles, n_buckets, tile_w,
+        tile_h, ntx, gout, gtfin, tfin, acc, dgeo, dfeats, s));
   }
   return 0;
 }

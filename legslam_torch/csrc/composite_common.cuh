@@ -32,6 +32,9 @@ constexpr int kMinBlocks = 2;
 // a tile height that does not divide kThreads (the stripes)
 constexpr int kUnsupportedWidth = -1;
 constexpr int kUnsupportedTile = -2;
+// returned for a bucket count below 1, and by the forward for a kfin
+// output with buckets (its watermark is defined for one range a tile)
+constexpr int kUnsupportedBuckets = -3;
 
 struct TilePixel {
   int row, col;  // in the tile

@@ -22,7 +22,8 @@
 //
 // Design: a tile is cut into blocks of 256 pixels, all rows of a stripe of
 // 256 / tile_h columns (16x16 of a 16x128 tile), one thread per pixel. All
-// blocks of a tile walk the same pair range in batches of 32 pairs. The
+// blocks of a tile walk the same pair range in batches of 32 pairs from
+// its first pair. The
 // batch's pair rows (geometry and features, as stored) are staged by
 // cp.async into a two-slot ring in shared memory: the next batch's copies
 // are in flight while the current one computes. Per batch, each warp
@@ -49,8 +50,22 @@
 // have. The chain, t_final and kfin are those of a thread-per-pixel loop
 // over every pair, bit for bit: a pair no pixel keeps leaves them as they
 // are. Only acc's summation order differs. A block's kfin is the largest
-// chunk index after which one of its pixels terminated; the tile's kfin is
-// the max over its blocks (atomicMax on a zeroed int).
+// chunk index after which one of its pixels terminated (the chunk, from
+// the aligned base, of the pair that ended the pixel's chain); the tile's
+// kfin is the max over its blocks (atomicMax on a zeroed int).
+//
+// Bucketed layout (n_buckets > 1; composite.py:153-156, :206-308): a tile
+// has n_buckets ranges, contiguous blocks of depth rank, each sorted by
+// rank, so taken in order they are its pairs front to back. The batch
+// cursor walks them in order, each from the batch holding its first pair,
+// and stages only rows inside the range it is in (a range starts at its
+// own unaligned offset, and the rows between two ranges are the previous
+// bucket's sentinels): the next batch, staged while the current one
+// computes, is the rest of the current range or else the first batch of
+// the next non-empty one. Each pixel's log T_all, log t_final, acc and
+// termination carry from one range to the next, and a block stops once
+// all its pixels have terminated. kfin is defined for the flat layout
+// only, and is not written here (kfin_out is null).
 #include "composite_common.cuh"
 
 namespace legslam {
@@ -204,13 +219,26 @@ __device__ __forceinline__ void phase2_step(float (&d)[2][NCH / 8][4],
   }
 }
 
+// The first non-empty range at or after bucket b of a tile's n ranges
+// (starts rs, counts rc), with its [s, e); n when there is none.
+__device__ __forceinline__ int seek_range(const int* rs, const int* rc, int b,
+                                          int n, int& s, int& e) {
+  for (; b < n; ++b) {
+    s = rs[b];
+    e = s + rc[b];
+    if (s < e) break;
+  }
+  return b;
+}
+
 template <int NCH, typename FeatT>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 composite_fwd_kernel(const int* __restrict__ tile_start,
                      const int* __restrict__ tile_count,
                      const float* __restrict__ geo,
-                     const FeatT* __restrict__ feats, int tile_w, int tile_h,
-                     int ntx, int chunk, float* __restrict__ acc_out,
+                     const FeatT* __restrict__ feats, int n_buckets,
+                     int tile_w, int tile_h, int ntx, int chunk,
+                     float* __restrict__ acc_out,
                      float* __restrict__ tfin_out, int* __restrict__ kfin_out) {
   using L = Smem<NCH, FeatT>;
   constexpr int kTiles = NCH / 8;  // 8-channel mma tiles
@@ -238,10 +266,11 @@ composite_fwd_kernel(const int* __restrict__ tile_start,
   const float wx1 = wx + (r0 == r1 ? (32 * warp + 31) % cols : cols - 1);
   const float wy0 = wy + r0;
   const float wy1 = wy + r1;
-  const int start = tile_start[t];
-  const int end = start + tile_count[t];
-  const int base0 = (start / chunk) * chunk;
-  const int n_chunks = (end - base0 + chunk - 1) / chunk;
+  const int* rs = tile_start + static_cast<size_t>(t) * n_buckets;
+  const int* rc = tile_count + static_cast<size_t>(t) * n_buckets;
+  // kfin's frame: the flat layout's one range
+  const int base0 = (rs[0] / chunk) * chunk;
+  const int n_chunks = (rs[0] + rc[0] - base0 + chunk - 1) / chunk;
   // each slot's zero row, which phase 2 reads past a warp's last pair
   for (int i = threadIdx.x; i < 2 * L::feat_row / 16; i += kThreads) {
     const int slot = i / (L::feat_row / 16);
@@ -266,28 +295,39 @@ composite_fwd_kernel(const int* __restrict__ tile_start,
   bool done = !live;
   int k_done = 0;
 
-  // batches from the one holding the tile's first pair, at kBatch steps
-  // from the aligned base (batches before it have no pair of the tile)
-  int b0 = start < end ? base0 + (start - base0) / kBatch * kBatch : end;
-  if (b0 < end) {
-    stage_batch<NCH>(smem + L::geo, smem + L::feat, geo, feats, start,
-                     min(b0 + kBatch, end) - start);
+  // the batch cursor: bucket bk's range [start, end), batch [b0, b0 +
+  // kBatch). A range's batches run from its first pair, so a tile's
+  // batches, and acc's summation order, depend on its pairs alone and not
+  // on where they lie in the buffer (a strip's render equals the rows of
+  // the full render)
+  int start = 0, end = 0;
+  int bk = seek_range(rs, rc, 0, n_buckets, start, end);
+  int b0 = start;
+  if (bk < n_buckets) {
+    stage_batch<NCH>(smem + L::geo, smem + L::feat, geo, feats, b0,
+                     min(b0 + kBatch, end) - b0);
   }
   cp_async_commit();
-  for (int slot = 0; b0 < end; b0 += kBatch, slot ^= 1) {
+  for (int slot = 0; bk < n_buckets; slot ^= 1) {
     // also the barrier before the other slot is overwritten
     if (__syncthreads_and(done)) break;
-    const int nx = b0 + kBatch;
-    if (nx < end) {
+    // this batch; then the cursor moves on, to the rest of this range or
+    // else to the first pair of the next non-empty one, which is staged
+    const int lo = b0;
+    const int nb = min(b0 + kBatch, end) - lo;
+    b0 += kBatch;
+    if (b0 >= end) {
+      bk = seek_range(rs, rc, bk + 1, n_buckets, start, end);
+      b0 = start;
+    }
+    if (bk < n_buckets) {
       stage_batch<NCH>(smem + L::geo + (slot ^ 1) * L::geo_slot,
                        smem + L::feat + (slot ^ 1) * L::feat_slot, geo, feats,
-                       nx, min(nx + kBatch, end) - nx);
+                       b0, min(b0 + kBatch, end) - b0);
     }
     cp_async_commit();
     cp_async_wait<1>();  // this thread's copies of this batch
     __syncthreads();     // and every thread's
-    const int lo = max(b0, start);
-    const int nb = min(b0 + kBatch, end) - lo;
     const float* sg =
         reinterpret_cast<const float*>(smem + L::geo + slot * L::geo_slot);
 
@@ -305,6 +345,7 @@ composite_fwd_kernel(const int* __restrict__ tile_start,
 
     // 1: the chain, 8 pairs a step
     unsigned wmask = 0;  // bit i: the pixel composites the warp's pair i
+    int term = 0;        // the warp's pair that ends the pixel's chain
 #pragma unroll
     for (int i0 = 0; i0 < kBatch; i0 += 8) {
       if (i0 >= n_pairs) break;
@@ -342,14 +383,18 @@ composite_fwd_kernel(const int* __restrict__ tile_start,
             w = alpha[q] * expf(log_t_exc);
             log_t_fin += log1m;
             wmask |= 1u << (i0 + q);
+          } else {
+            term = i0 + q;
           }
         }
         s_w[i0 + q][threadIdx.x] = w;
       }
     }
     if (!done && log_t_all < kLogTerm) {
+      // kfin counts the chunks up to the one holding the pair that ended
+      // the pixel's chain
       done = true;
-      k_done = (b0 - base0) / chunk + 1;
+      k_done = (lo + s_pairs[term] - base0) / chunk + 1;
     }
 
     // 2: the warp's 32 pixels x C += W . F on the tensor cores
@@ -369,7 +414,9 @@ composite_fwd_kernel(const int* __restrict__ tile_start,
 
   atomicMax(s_kmax, k_done);
   const bool all_done = __syncthreads_and(done);
-  if (threadIdx.x == 0) atomicMax(kfin_out + t, all_done ? *s_kmax : n_chunks);
+  if (threadIdx.x == 0 && kfin_out != nullptr) {
+    atomicMax(kfin_out + t, all_done ? *s_kmax : n_chunks);
+  }
   if (live) {
     tfin_out[static_cast<size_t>(t) * npix + tp.index] = expf(log_t_fin);
   }
@@ -397,8 +444,9 @@ composite_fwd_kernel(const int* __restrict__ tile_start,
 
 template <int NCH, typename FeatT>
 int launch(const int* tile_start, const int* tile_count, const float* geo,
-           const void* feats, int ntiles, int tile_w, int tile_h, int ntx,
-           int chunk, float* acc, float* tfin, int* kfin, cudaStream_t stream) {
+           const void* feats, int ntiles, int n_buckets, int tile_w,
+           int tile_h, int ntx, int chunk, float* acc, float* tfin, int* kfin,
+           cudaStream_t stream) {
   const auto kernel = composite_fwd_kernel<NCH, FeatT>;
   const int smem = Smem<NCH, FeatT>::bytes;
   // set on every call: the attributes belong to the current device. The
@@ -413,38 +461,43 @@ int launch(const int* tile_start, const int* tile_count, const float* geo,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid = stripe_grid(ntiles, tile_w, tile_h);
   kernel<<<grid, kThreads, smem, stream>>>(
-      tile_start, tile_count, geo, static_cast<const FeatT*>(feats), tile_w,
-      tile_h, ntx, chunk, acc, tfin, kfin);
+      tile_start, tile_count, geo, static_cast<const FeatT*>(feats),
+      n_buckets, tile_w, tile_h, ntx, chunk, acc, tfin, kfin);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace legslam
 
+// tile_start / tile_count [ntiles * n_buckets], bucket-major per tile.
 // acc [ntiles, tile_h*tile_w, nch] f32, tfin [ntiles, tile_h*tile_w] f32,
-// kfin [ntiles] int32 (zeroed by the caller). feats is [N, nch] bf16 when
-// feats_bf16 != 0, else f32; geo and feats 16-byte aligned. Returns a
-// cudaError_t, -1 for a width the kernel is not compiled for, or -2 for a
-// tile height that does not divide 256.
+// kfin [ntiles] int32 (zeroed by the caller) or null; it must be null when
+// n_buckets > 1. feats is [N, nch] bf16 when feats_bf16 != 0, else f32; geo
+// and feats 16-byte aligned. Returns a cudaError_t, -1 for a width the
+// kernel is not compiled for, or -2 for a tile height that does not divide
+// 256, or -3 for a bucket count below 1 or a kfin with buckets.
 extern "C" int legslam_composite_fwd(const int* tile_start,
                                      const int* tile_count, const float* geo,
                                      const void* feats, int feats_bf16,
-                                     int nch, int ntiles, int tile_w,
-                                     int tile_h, int ntx, int chunk,
-                                     float* acc, float* tfin, int* kfin,
-                                     void* stream) {
+                                     int nch, int ntiles, int n_buckets,
+                                     int tile_w, int tile_h, int ntx,
+                                     int chunk, float* acc, float* tfin,
+                                     int* kfin, void* stream) {
   using namespace legslam;
   if (ntiles == 0) return 0;
   if (tile_h <= 0 || kThreads % tile_h) return kUnsupportedTile;
+  if (n_buckets < 1 || (n_buckets > 1 && kfin != nullptr)) {
+    return kUnsupportedBuckets;
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (feats_bf16) {
     LEGSLAM_DISPATCH_NCH(nch, return launch<NCH, __nv_bfloat16>(
-        tile_start, tile_count, geo, feats, ntiles, tile_w, tile_h, ntx,
-        chunk, acc, tfin, kfin, s));
+        tile_start, tile_count, geo, feats, ntiles, n_buckets, tile_w,
+        tile_h, ntx, chunk, acc, tfin, kfin, s));
   } else {
     LEGSLAM_DISPATCH_NCH(nch, return launch<NCH, float>(
-        tile_start, tile_count, geo, feats, ntiles, tile_w, tile_h, ntx,
-        chunk, acc, tfin, kfin, s));
+        tile_start, tile_count, geo, feats, ntiles, n_buckets, tile_w,
+        tile_h, ntx, chunk, acc, tfin, kfin, s));
   }
   return 0;
 }

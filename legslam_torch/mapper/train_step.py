@@ -65,14 +65,31 @@ def train_step(state: G.GaussianState,
                *, width: int, height: int, active_sh_degree: int,
                opt: OptimizationParams, cfg: RasterizeConfig,
                include_lang_feat: bool = True, max_per_tile: int = 2048,
-               binning=None, emit_kfin: bool = False):
+               binning=None, emit_kfin: bool = False, gather_group=None,
+               watermark_hint: int | None = None):
     """One optimization iteration on the state's device. Returns
     (state, StepAux); the state's tensors are updated in place.
 
     `binning` (optional): a cached (Binning, overflow) pair from
     ops.rasterize.compute_binning, for views whose geometry has not moved
     materially since the cache was built.
+
+    `gather_group` (optional): the state is this rank's shard of a
+    capacity-sharded store (parallel/capacity.py) over that process
+    group. Inside the loss the parameter rows are all-gathered into the
+    full working set; every rank renders the whole view, so each keeps
+    its own rows of its gradient, and Adam and the statistics run on the
+    local rows.
+
+    cfg.p_slabs: the prologue, Adam and the statistics run on the
+    whole-slab prefix covering the live watermark (ops/slabs.py).
+    `watermark_hint` is that watermark if the caller knows it on the host
+    (the mapper does, from its allocation bookkeeping); else it is read
+    once here.
     """
+    from legslam_torch.ops.slabs import watermark
+    from legslam_torch.parallel import capacity
+
     if gt_lang_feat is not None and \
             tuple(gt_lang_feat.shape[:2]) != (height, width):
         gt_lang_feat = upsample_lf(gt_lang_feat, height, width)
@@ -81,14 +98,23 @@ def train_step(state: G.GaussianState,
               for name, t in state.params.as_dict().items()}
     offset0 = torch.zeros(state.capacity, 2, device=state.valid.device,
                           requires_grad=True)
-    sh = torch.cat([leaves["f_dc"], leaves["f_rest"]], dim=1)
+
+    def full(t):
+        return capacity.gather(t, gather_group, partial=False)
+    valid = full(state.valid)
+    n_slabs = cfg.p_slabs if gather_group is None else 0
+    if cfg.p_slabs and watermark_hint is None and \
+            valid.shape[0] % cfg.p_slabs == 0:
+        watermark_hint = int(watermark(valid))
+    p = {name: full(t) for name, t in leaves.items()}
+    sh = torch.cat([p["f_dc"], p["f_rest"]], dim=1)
     out = render_arrays(
-        leaves["xyz"], sh, leaves["lang_feat"],
-        torch.sigmoid(leaves["opacity"][:, 0]), torch.exp(leaves["scaling"]),
-        leaves["rotation"], state.valid, world_view, full_proj, cam_center,
-        tan_fovx, tan_fovy, width, height, bg, active_sh_degree, cfg,
-        include_lang_feat=include_lang_feat, mean2d_offset=offset0,
-        max_per_tile=max_per_tile, binning=binning, emit_kfin=emit_kfin)
+        p["xyz"], sh, p["lang_feat"], torch.sigmoid(p["opacity"][:, 0]),
+        torch.exp(p["scaling"]), p["rotation"], valid, world_view,
+        full_proj, cam_center, tan_fovx, tan_fovy, width, height, bg,
+        active_sh_degree, cfg, include_lang_feat=include_lang_feat,
+        mean2d_offset=full(offset0), max_per_tile=max_per_tile,
+        binning=binning, emit_kfin=emit_kfin, watermark_hint=watermark_hint)
     loss = losses.mapping_loss(
         out.color, gt_color, out.lang_feat, gt_lang_feat, out.depth,
         gt_depth, mask, opt.lambda_dssim)
@@ -109,9 +135,12 @@ def train_step(state: G.GaussianState,
     g2d = grads[-1]
     G.add_densification_stats(
         state, torch.stack([g2d[:, 0] * (0.5 * width),
-                            g2d[:, 1] * (0.5 * height)], dim=1), out.radii)
+                            g2d[:, 1] * (0.5 * height)], dim=1),
+        capacity.local_rows(out.radii, gather_group), n_slabs=n_slabs,
+        watermark_hint=watermark_hint)
     G.adam_update(state, g_params,
-                  make_lrs(opt, spatial_lr_scale, position_lr_step))
+                  make_lrs(opt, spatial_lr_scale, position_lr_step),
+                  n_slabs=n_slabs, watermark_hint=watermark_hint)
 
     loss = loss.detach()
     color, depth = out.color.detach(), out.depth.detach()
@@ -120,7 +149,7 @@ def train_step(state: G.GaussianState,
     sync3 = torch.stack([loss.float(),
                          torch.as_tensor(out.overflow_pairs).float(),
                          torch.as_tensor(out.num_rendered).float(),
-                         state.num_valid().float()])
+                         valid.sum(dtype=torch.int32).float()])
     return state, StepAux(loss=loss, color=color, depth=depth,
                           radii=out.radii, psnr=psnr,
                           num_rendered=out.num_rendered,

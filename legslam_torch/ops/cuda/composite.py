@@ -40,11 +40,18 @@ def padded_channels(c: int) -> int:
     return -(-c // 8) * 8
 
 
+# rows the backward scatter spreads the sentinel pairs over (their
+# gradients are zero; one drop row would serialise the float atomics of
+# every sentinel hole of a bucketed layout on it)
+SENTINEL_ROWS = 1024
+
+
 class _TakePairs(torch.autograd.Function):
     """Gather pair geometry and features in sorted (tile, depth) order; the
     backward scatter-adds the pair gradients onto the gaussians in f32.
     Sentinel ids (gid == P) only sit outside every tile's range: the
-    forward reads row P-1 for them, the backward drops them."""
+    forward reads row P-1 for them, the backward drops them onto
+    SENTINEL_ROWS spare rows."""
 
     @staticmethod
     def forward(ctx, geo_g, feats, gid, feat_dtype):
@@ -59,35 +66,52 @@ class _TakePairs(torch.autograd.Function):
     def backward(ctx, dgeo, dpf):
         (gid,) = ctx.saved_tensors
         idx = gid.long()
+        pos = torch.arange(idx.shape[0], device=idx.device)
+        idx = torch.where(idx < ctx.P, idx, ctx.P + pos % SENTINEL_ROWS)
 
         def scatter(d):
-            out = torch.zeros(ctx.P + 1, d.shape[1], dtype=torch.float32,
-                              device=d.device)
+            out = torch.zeros(ctx.P + SENTINEL_ROWS, d.shape[1],
+                              dtype=torch.float32, device=d.device)
             return out.index_add_(0, idx, d.float())[:ctx.P]
         return scatter(dgeo), scatter(dpf), None, None
 
 
 def prepare_pairs(binning, mean2d: torch.Tensor, conic: torch.Tensor,
                   opacity: torch.Tensor, feats: torch.Tensor,
-                  max_pairs: int, mm_dtype: str = "float32"):
+                  max_pairs: int, mm_dtype: str = "float32",
+                  n_buckets: int = 1):
     """Per-pair geometry and features in sorted (tile, depth) order.
 
-    Valid pairs occupy the front of the sorted binning arrays, so
-    truncating at `max_pairs` keeps them all while num_rendered <=
-    max_pairs; overflowing tiles are clipped at the range level. The
-    sentinel tail is cut too (one host read of num_rendered per call):
-    its rows are never read for a tile, and scatter-adding their zero
-    gradients would serialize on one row.
+    Flat Binning (n_buckets 1): valid pairs occupy the front of the sorted
+    binning arrays, so truncating at `max_pairs` keeps them all while
+    num_rendered <= max_pairs; overflowing tiles are clipped at the range
+    level. The sentinel tail is cut too (one host read of num_rendered per
+    call): its rows are never read for a tile, and scatter-adding their
+    zero gradients would serialize on one row.
 
-    Returns (start [ntiles] i32, count [ntiles] i32, geo [N, 8] f32,
-    pair_feats [N, C_pad] in mm_dtype), N = min(max_pairs, num_rendered),
-    at least 1.
+    BucketedBinning (n_buckets > 1, legslam_tpu/ops/pallas/composite.py:
+    451-457): the pair ids are already capped per bucket, and the ranges
+    are the flat [ntiles * B] view of [ntiles, B]. The valid pairs are
+    per-bucket prefixes with sentinel holes between them, so nothing is
+    cut and no global max_pairs clip applies.
+
+    Returns (start [ntiles * B] i32, count [ntiles * B] i32, geo [N, 8]
+    f32, pair_feats [N, C_pad] in mm_dtype); N = min(max_pairs,
+    num_rendered), at least 1, in the flat layout, and B * bucket_cap in
+    the bucketed one.
     """
-    n = max(1, min(max_pairs, int(binning.num_rendered)))
-    gid = binning.pair_gid[:n]
-    start = torch.clamp_max(binning.tile_start, max_pairs).to(torch.int32)
-    end = torch.clamp_max(binning.tile_start + binning.tile_count, max_pairs)
-    count = (end - start).to(torch.int32)
+    if n_buckets > 1:
+        gid = binning.pair_gid
+        start = binning.tile_start.reshape(-1).to(torch.int32)
+        count = binning.tile_count.reshape(-1).to(torch.int32)
+    else:
+        n = max(1, min(max_pairs, int(binning.num_rendered)))
+        gid = binning.pair_gid[:n]
+        start = torch.clamp_max(binning.tile_start, max_pairs).to(
+            torch.int32)
+        end = torch.clamp_max(binning.tile_start + binning.tile_count,
+                              max_pairs)
+        count = (end - start).to(torch.int32)
     zeros = torch.zeros_like(opacity)
     geo_g = torch.stack([mean2d[:, 0], mean2d[:, 1], conic[:, 0],
                          conic[:, 1], conic[:, 2], opacity, zeros, zeros],
@@ -99,7 +123,8 @@ def prepare_pairs(binning, mean2d: torch.Tensor, conic: torch.Tensor,
     return start, count, geo, pf
 
 
-def check_pairs(start, count, geo, feats, tile_w: int, chunk: int):
+def check_pairs(start, count, geo, feats, tile_w: int, chunk: int,
+                n_buckets: int = 1):
     """Validate the pair arrays a compositing kernel or its plain version
     is given; returns the device."""
     dev = geo.device
@@ -110,6 +135,9 @@ def check_pairs(start, count, geo, feats, tile_w: int, chunk: int):
         raise TypeError("start/count must be int32")
     if start.shape != count.shape or start.ndim != 1:
         raise ValueError("start/count must be matching [ntiles] vectors")
+    if n_buckets < 1 or start.shape[0] % n_buckets:
+        raise ValueError(f"{start.shape[0]} ranges are not whole tiles of "
+                         f"{n_buckets} buckets")
     if geo.dtype != torch.float32 or geo.ndim != 2 or \
             geo.shape[1] != GEO_ROWS:
         raise ValueError(f"geo must be [N, {GEO_ROWS}] float32")
@@ -142,32 +170,36 @@ def kernel_args(*tensors):
 
 def composite_forward(start: torch.Tensor, count: torch.Tensor,
                       geo: torch.Tensor, feats: torch.Tensor, tile_w: int,
-                      tile_h: int, ntx: int, chunk: int):
-    """Forward compositing over the pair arrays.
+                      tile_h: int, ntx: int, chunk: int, n_buckets: int = 1):
+    """Forward compositing over the pair arrays; start/count hold
+    n_buckets ranges a tile (bucket-major per tile), walked in order.
 
     Returns (acc [ntiles, tile_h*tile_w, C] f32, t_final [ntiles,
-    tile_h*tile_w] f32, kfin [ntiles] int32). Launches the CUDA kernel for
-    CUDA tensors (counted in `composite_forward.launches`) and runs the
-    plain version for CPU tensors.
+    tile_h*tile_w] f32, kfin [ntiles] int32), kfin None when n_buckets > 1
+    (the watermark is defined for the flat layout only). Launches the CUDA
+    kernel for CUDA tensors (counted in `composite_forward.launches`) and
+    runs the plain version for CPU tensors.
     """
-    dev = check_pairs(start, count, geo, feats, tile_w, chunk)
+    dev = check_pairs(start, count, geo, feats, tile_w, chunk, n_buckets)
     if dev.type == "cpu":
         return composite_forward_plain(start, count, geo, feats, tile_w,
-                                       tile_h, ntx, chunk)
+                                       tile_h, ntx, chunk, n_buckets)
     if dev.type != "cuda":
         raise ValueError(f"no compositing kernel for device {dev}")
     nch = feats.shape[1]
     check_kernel_shape(nch, tile_h)
-    ntiles, npix = start.shape[0], tile_w * tile_h
+    ntiles, npix = start.shape[0] // n_buckets, tile_w * tile_h
     acc = torch.empty(ntiles, npix, nch, dtype=torch.float32, device=dev)
     tfin = torch.empty(ntiles, npix, dtype=torch.float32, device=dev)
-    kfin = torch.zeros(ntiles, dtype=torch.int32, device=dev)
+    kfin = torch.zeros(ntiles, dtype=torch.int32, device=dev) \
+        if n_buckets == 1 else None
     fn = _fwd_fn()
-    p_start, p_count, p_geo, p_feats, p_acc, p_tfin, p_kfin = kernel_args(
-        start, count, geo, feats, acc, tfin, kfin)
+    p_start, p_count, p_geo, p_feats, p_acc, p_tfin = kernel_args(
+        start, count, geo, feats, acc, tfin)
+    p_kfin = kfin.data_ptr() if kfin is not None else None
     err = fn(p_start, p_count, p_geo, p_feats,
-             int(feats.dtype == torch.bfloat16), nch, ntiles, tile_w,
-             tile_h, ntx, chunk, p_acc, p_tfin, p_kfin,
+             int(feats.dtype == torch.bfloat16), nch, ntiles, n_buckets,
+             tile_w, tile_h, ntx, chunk, p_acc, p_tfin, p_kfin,
              torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"composite_fwd launch failed: error {err}")
@@ -182,7 +214,7 @@ def _fwd_fn():
     from legslam_torch import _build
     vp, i = ctypes.c_void_p, ctypes.c_int
     return _build.function("composite_fwd", "legslam_composite_fwd",
-                           [vp, vp, vp, vp, i, i, i, i, i, i, i,
+                           [vp, vp, vp, vp, i, i, i, i, i, i, i, i,
                             vp, vp, vp, vp])
 
 
@@ -229,13 +261,16 @@ def tile_chunk_ranges(start, count, chunk: int):
 
 @torch.no_grad()
 def composite_forward_plain(start, count, geo, feats, tile_w: int,
-                            tile_h: int, ntx: int, chunk: int):
+                            tile_h: int, ntx: int, chunk: int,
+                            n_buckets: int = 1):
     """Plain PyTorch version of the forward kernel, same arguments and
-    outputs: per batch of tiles and per chunk of pairs, alphas for every
-    (pixel, pair), the exclusive log-transmittance prefix by cumsum, and
-    the channel sums by a matmul. A tile stops after the first chunk that
-    leaves every pixel with log T_all < log(1e-4); kfin counts its chunks."""
-    ntiles, npix = start.shape[0], tile_w * tile_h
+    outputs: per batch of tiles, per bucket range in order and per chunk
+    of pairs, alphas for every (pixel, pair), the exclusive
+    log-transmittance prefix by cumsum, and the channel sums by a matmul,
+    each pixel's state carried from one range to the next. A tile stops
+    after the first chunk that leaves every pixel with log T_all <
+    log(1e-4); in the flat layout kfin counts its chunks."""
+    ntiles, npix = start.shape[0] // n_buckets, tile_w * tile_h
     dev = geo.device
     feats = feats.float()
     acc = torch.zeros(ntiles, npix, feats.shape[1], device=dev)
@@ -245,53 +280,62 @@ def composite_forward_plain(start, count, geo, feats, tile_w: int,
     for t0 in range(0, ntiles, PLAIN_TILE_BATCH):
         tid = torch.arange(t0, min(t0 + PLAIN_TILE_BATCH, ntiles),
                            device=dev)
-        s, e, base0, n_chunks = tile_chunk_ranges(start[tid], count[tid],
-                                                  chunk)
         px, py = tile_pixels(tid, tile_w, tile_h, ntx)
         log_all = torch.zeros(len(tid), npix, device=dev)
         log_fin = torch.zeros_like(log_all)
         a = torch.zeros(len(tid), npix, feats.shape[1], device=dev)
-        running = n_chunks > 0
-        kf = n_chunks.clone()
-        for k in range(int(n_chunks.max())):
-            running = running & (k < n_chunks)
-            pos = base0[:, None] + k * chunk + koff
-            in_range = (pos >= s[:, None]) & (pos < e[:, None]) & \
-                running[:, None]
-            alpha = chunk_alpha(geo, pos, in_range, px, py)["alpha"]
-            log1m = torch.log1p(-alpha)
-            log_exc = log_all[..., None] + exclusive_cumsum(log1m)
-            contrib = log_exc + log1m >= LOG_TERM
-            w = torch.where(contrib, alpha * torch.exp(log_exc), 0.0)
-            f = feats[torch.clamp(pos, 0, feats.shape[0] - 1)]
-            a = a + torch.bmm(w, f)
-            log_all = log_all + log1m.sum(-1)
-            log_fin = log_fin + torch.where(contrib, log1m, 0.0).sum(-1)
-            newly = running & (log_all.max(-1).values < LOG_TERM)
-            kf = torch.where(newly, k + 1, kf)
-            running = running & ~newly
+        alive = torch.ones(len(tid), dtype=torch.bool, device=dev)
+        for b in range(n_buckets):
+            rid = tid * n_buckets + b
+            s, e, base0, n_chunks = tile_chunk_ranges(start[rid],
+                                                      count[rid], chunk)
+            running = alive & (n_chunks > 0)
+            if b == 0:
+                kf = n_chunks.clone()
+            for k in range(int(n_chunks.max())):
+                running = running & (k < n_chunks)
+                pos = base0[:, None] + k * chunk + koff
+                in_range = (pos >= s[:, None]) & (pos < e[:, None]) & \
+                    running[:, None]
+                alpha = chunk_alpha(geo, pos, in_range, px, py)["alpha"]
+                log1m = torch.log1p(-alpha)
+                log_exc = log_all[..., None] + exclusive_cumsum(log1m)
+                contrib = log_exc + log1m >= LOG_TERM
+                w = torch.where(contrib, alpha * torch.exp(log_exc), 0.0)
+                f = feats[torch.clamp(pos, 0, feats.shape[0] - 1)]
+                a = a + torch.bmm(w, f)
+                log_all = log_all + log1m.sum(-1)
+                log_fin = log_fin + torch.where(contrib, log1m, 0.0).sum(-1)
+                newly = running & (log_all.max(-1).values < LOG_TERM)
+                if b == 0:
+                    kf = torch.where(newly, k + 1, kf)
+                running = running & ~newly
+                alive = alive & ~newly
         acc[tid] = a
         tfin[tid] = torch.exp(log_fin)
         kfin[tid] = kf.to(torch.int32)
-    return acc, tfin, kfin
+    return acc, tfin, kfin if n_buckets == 1 else None
 
 
 def composite_image(binning, mean2d, conic, opacity, feats, width: int,
                     height: int, tile_w: int, tile_h: int, max_pairs: int,
-                    chunk: int = 256, mm_dtype: str = "float32"):
+                    chunk: int = 256, mm_dtype: str = "float32",
+                    n_buckets: int = 1):
     """Full-image compositing through the kernels, differentiable in
     mean2d / conic / opacity / feats (backward kernel + the pair gather's
-    scatter-add). Returns (img [H, W, C], t_final [H, W], kfin [ntiles]),
-    kfin being the per-tile termination watermark that feeds
-    ops/binning.trim_binning."""
+    scatter-add), over a flat Binning or, with the matching n_buckets, a
+    BucketedBinning. Returns (img [H, W, C], t_final [H, W], kfin
+    [ntiles]), kfin being the per-tile termination watermark that feeds
+    ops/binning.trim_binning (None for a bucketed binning)."""
     from legslam_torch.ops.cuda.composite_bwd import CompositeTiles
     ntx = -(-width // tile_w)
     nty = -(-height // tile_h)
     c = feats.shape[1]
     start, count, geo, pf = prepare_pairs(binning, mean2d, conic, opacity,
-                                          feats, max_pairs, mm_dtype)
+                                          feats, max_pairs, mm_dtype,
+                                          n_buckets)
     acc, tfin, kfin = CompositeTiles.apply(start, count, geo, pf, tile_w,
-                                           tile_h, ntx, chunk)
+                                           tile_h, ntx, chunk, n_buckets)
     c_out = acc.shape[-1]
     img = acc.reshape(nty, ntx, tile_h, tile_w, c_out).permute(0, 2, 1, 3, 4)
     img = img.reshape(nty * tile_h, ntx * tile_w, c_out)[:height, :width, :c]

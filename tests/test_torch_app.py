@@ -113,11 +113,26 @@ def test_replica_layout_cli_end_to_end(replica_scene, tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [["--n-views", "2"],
                                    ["--spatial-strips", "2"],
-                                   ["--shard-store"]])
-def test_unported_options_raise(replica_scene, tmp_path, flags):
+                                   ["--shard-store"],
+                                   ["--n-buckets", "2", "--bucket-cap", "1024",
+                                    "--p-slabs", "8", "--no-ellipse-cull"]])
+def test_unported_options_raise(replica_scene, tmp_path, capsys, flags):
+    """The options that raised before the multi-view, strip and sharded
+    paths were ported now run the app to its end (6 frames), as do the
+    bucketed layout, the slab skip and the cull switch."""
     from legslam_torch.apps.replica_rgbd import main
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--data", str(replica_scene), "--out", str(tmp_path)] + flags)
+    cfg = tmp_path / "tiny_rgbd.yaml"
+    # a 4-iteration tail (0.8 x the densification interval)
+    cfg.write_text(MAPPER_YAML.replace("densification_interval: 20",
+                                       "densification_interval: 5"))
+    out = str(tmp_path / "run")
+    main(["--data", str(replica_scene), "--out", out, "--max-frames", "6",
+          "--cfg", str(cfg)] + FAST_ARGS + flags)
+    text = capsys.readouterr().out
+    assert "Keyframes: 3" in text and "PSNR-GS:" in text, text
+    psnrs = np.atleast_1d(np.loadtxt(os.path.join(
+        out, "experiment", "psnr_gaussian_splatting.txt")))
+    assert psnrs.shape == (3,) and np.isfinite(psnrs).all()
 
 
 VISUAL_FRAMES = 6

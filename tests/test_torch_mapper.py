@@ -261,11 +261,18 @@ def test_mapper_final_state_matches(mapper_runs):
 @pytest.mark.parametrize("kw", [dict(n_views=2), dict(spatial_strips=2),
                                 dict(shard_store=True)])
 def test_unported_mapper_paths_raise(kw):
-    """The multi-view, spatial and sharded paths are not ported: they
-    raise, pointing at the ROADMAP, instead of running something else.
-    (The mono / stereo inactive geometry is ported and held against JAX in
+    """The multi-view, spatial and sharded paths are ported now (they
+    were the last that raised): each constructs and, with no process
+    group, takes the one-device path, leaving the capacity ladder off as
+    JAX does. Their ticks are held against JAX's mapper in
+    tests/test_torch_mapper_parallel.py and test_torch_mapper_store.py.
+    (The mono / stereo inactive geometry is held against JAX in
     tests/test_torch_stereo.py.)"""
     from legslam_torch.slam.interface import OperationQueue
     intr = dict(width=W, height=H, fx=100.0, fy=100.0, cx=63.5, cy=31.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GaussianMapper(OperationQueue(), intr, device="cpu", **kw)
+    m = GaussianMapper(OperationQueue(), intr, device="cpu", **kw)
+    assert m._group is None and m._view_group is None
+    assert m._shard_group is None and not m.capacity_ladder
+    for bad in (dict(n_views=0), dict(spatial_strips=0)):
+        with pytest.raises(ValueError):
+            GaussianMapper(OperationQueue(), intr, device="cpu", **bad)

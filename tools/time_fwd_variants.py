@@ -86,15 +86,19 @@ def build(forms: dict[str, str]) -> dict:
                                 for x in lines[k + 2:k + 4])
                 print(f"[build] {name} <72, bf16>: {tail}")
         fn = ctypes.CDLL(str(so)).legslam_composite_fwd
-        fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp, vp, vp, vp]
+        # forms from before the bucketed layout take no n_buckets
+        fn.buckets = "int n_buckets," in forms[name]
+        fn.argtypes = [vp, vp, vp, vp] + [i] * (7 + fn.buckets) + \
+            [vp, vp, vp, vp]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
 
 
 def call(fn, args):
-    """One launch of a form's C entry, as composite_forward makes it."""
-    start, count, geo, feats, tile_w, tile_h, ntx, chunk = args
+    """One launch of a form's C entry, as composite_forward makes it (a
+    flat layout: one range a tile)."""
+    start, count, geo, feats, tile_w, tile_h, ntx, chunk = args[:8]
     ntiles, npix, nch = start.shape[0], tile_w * tile_h, feats.shape[1]
     dev = geo.device
     acc = torch.empty(ntiles, npix, nch, device=dev)
@@ -102,8 +106,8 @@ def call(fn, args):
     kfin = torch.zeros(ntiles, dtype=torch.int32, device=dev)
     err = fn(start.data_ptr(), count.data_ptr(), geo.data_ptr(),
              feats.data_ptr(), int(feats.dtype == torch.bfloat16), nch,
-             ntiles, tile_w, tile_h, ntx, chunk, acc.data_ptr(),
-             tfin.data_ptr(), kfin.data_ptr(),
+             ntiles, *([1] if fn.buckets else []), tile_w, tile_h, ntx,
+             chunk, acc.data_ptr(), tfin.data_ptr(), kfin.data_ptr(),
              torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"launch failed: error {err}")
