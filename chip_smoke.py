@@ -101,7 +101,17 @@ Phases (each prints one or more lines; any failure exits non-zero):
      room through GaussianMapper with p_slabs=8, the watermark from its
      bookkeeping against a read each step; [store]
      shard_store on one card takes the one-device path;
- 10. a {"kernels": [...]} line, then the card line, then as the last line
+ 10. the mapper's two store paths the earlier phases do not reach (see
+     ladder_phase, loop_phase): [ladder] phase 5's room through
+     GaussianMapper fed a keyframe a frame of ~3200 map points, so that
+     keyframes grow the store past its first capacity rung while it
+     trains; each grow keeps the old rows bit for bit, and the run keeps
+     its PSNR gate; [loop] the loop-closure scene of
+     tests/test_torch_mapper_ops.py through the RGB-D tracker on the host,
+     its operations (and a Sim(3) loop and a scale refinement built from
+     them) replayed by a mapper on the card and one on the CPU, the stores
+     compared after every surgery;
+ 11. a {"kernels": [...]} line, then the card line, then as the last line
      {"ok": true, "device": {...}}.
 
 Each kernel's `launches` is its count over the path that runs it: the
@@ -109,8 +119,9 @@ compositing kernels' over phase 4's 24 steps, the sort kernels' over
 phase 5's training loop (phase 4 runs cuda_sort at its default and
 counts their launches too); `query_launches` is its count over phase 7's
 pixel-space search, `visual_launches` over phase 8's [visual] system loop,
-and a compositing kernel's `bucketed_*` keys are phase 9's [buckets]
-readings (its launches over the 8 bucketed steps).
+`ladder_launches` over phase 10's [ladder] run, and a compositing
+kernel's `bucketed_*` keys are phase 9's [buckets] readings (its
+launches over the 8 bucketed steps).
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result. Imports nothing of JAX.
 """
@@ -744,13 +755,15 @@ MAPPER_ROOM = dict(n_frames=40, width=1200, height=680, n_gaussians=200_000,
 
 
 def drive_mapper(dev, ds, frames, cfg, out_dir, max_per_tile=2048,
-                 **mapper_kw):
+                 frontend_kw=None, **mapper_kw):
     """Drive GaussianMapper over `frames` as the app loop does (track,
     drain, initialize_map, train_iteration; then the tail), with a seeded
     unit-norm 37x37x64 LF grid a frame standing in for the encoder;
-    mapper_kw go to the mapper (n_views, spatial_strips, shard_store).
-    Returns the mapper, a copy of its store right after initialize_map,
-    and the ms per iteration, synced losses and capacity rungs."""
+    frontend_kw go to the TrajectoryFrontend, mapper_kw to the mapper
+    (n_views, spatial_strips, shard_store). Returns the mapper, a copy of
+    its store right after initialize_map, the ms per iteration, the
+    synced losses and the capacity rungs ({capacity: index of the first
+    iteration at it})."""
     from legslam_torch.config import MapperParams, OptimizationParams
     from legslam_torch.mapper.mapper import GaussianMapper
     from legslam_torch.models import gaussians as G
@@ -760,7 +773,8 @@ def drive_mapper(dev, ds, frames, cfg, out_dir, max_per_tile=2048,
     def lf_grid():
         lf = rng.normal(size=(37, 37, 64)).astype(np.float32)
         return lf / np.linalg.norm(lf, axis=-1, keepdims=True)
-    frontend = TrajectoryFrontend(ds.intrinsics, kf_stride=4)
+    frontend = TrajectoryFrontend(
+        ds.intrinsics, **{"kf_stride": 4, **(frontend_kw or {})})
     # densify every 50 iterations from 40: four times in the run
     opt = OptimizationParams(densify_from_iter=40, densification_interval=50)
     mapper = GaussianMapper(frontend.queue, ds.intrinsics, opt=opt,
@@ -769,17 +783,16 @@ def drive_mapper(dev, ds, frames, cfg, out_dir, max_per_tile=2048,
                             max_per_tile=max_per_tile,
                             binning_refresh_interval=8, device=dev,
                             **mapper_kw)
-    iter_ms, losses, rungs, init = [], [], [], None
+    iter_ms, losses, rungs, init = [], [], {}, None
 
     def step():
+        rungs.setdefault(mapper.state.capacity, len(iter_ms))
         ta = time.perf_counter()
         loss = mapper.train_iteration()
         sync(dev)
         iter_ms.append((time.perf_counter() - ta) * 1e3)
         if loss is not None:
             losses.append(loss)
-        if mapper.state.capacity not in rungs:
-            rungs.append(mapper.state.capacity)
 
     for f in frames:
         frontend.track(f, lf_image=lf_grid())
@@ -1744,7 +1757,9 @@ def query_phase(dev, card, fails, out_dir: Path, pca):
 # tracker loses frames 1-12 of this orbit (every frame after the bootstrap
 # keyframe until it re-anchors) on every render path tried and at a third
 # of the motion, and none at 10k, 20k or 40k (tools/probe_visual_room.py,
-# PERF.md §4); the cause is not diagnosed.
+# PERF.md §4). The JAX package's tracker loses the same frames on the
+# same CPU-rendered frames, its operation stream equal to the port's
+# (tools/diagnose_visual_loss.py): the scene's property, not the port's.
 VISUAL_ROOM = dict(n_frames=40, width=1200, height=680, n_gaussians=40_000,
                    seed=3, clutter_ratio=0.0, revolutions=0.15)
 # the [stereo] pair: EuRoC's 752x480 and its 128 disparities
@@ -2762,6 +2777,252 @@ def store_phase(dev, card, fails, ds):
         fails.append("store: shard_store on one card took a group")
 
 
+# --- phase 10: a capacity rung and loop-closure surgery on the card ---------
+
+# [ladder]: a keyframe every frame, each keypoint with depth a map point,
+# the keypoints on the frontend's 16 px grid (its path on a host without
+# OpenCV: cv2 finds only ~100 corners in this fog): ~3200 points a
+# keyframe, so the initial map of 4 keyframes starts on the ladder's first
+# rung, 2^15, and the third keyframe after it takes the store past 60% of
+# that, ~20 iterations in, before the first densification (iteration 40)
+LADDER_FRONTEND = dict(kf_stride=1, map_point_ratio=1.0)
+# [loop]: the loop-closure scene and mapper settings of
+# tests/test_torch_mapper_ops.py (one revolution at 5.6 deg a frame)
+LOOP_ROOM = dict(n_frames=64, width=160, height=96, n_gaussians=5000,
+                 revolutions=1.0, radius=1.0, clutter_ratio=0.0)
+LOOP_MP = dict(min_num_initial_map_kfs=3, depth_cache=2,
+               do_gaus_pyramid_training=False)
+LOOP_TRACK = dict(ransac_thresh=0.1, loop_min_gap=8, cull_redundancy=0.6)
+# card against CPU after a surgery, of each group's largest value: four
+# float32 ulps (the same elementwise arithmetic on both; measured: 0 on an
+# H100)
+LOOP_TOL = 4 * 2.0 ** -23
+
+
+def state_rows_equal(old, new) -> bool:
+    """Whether `new` holds `old`'s rows bit for bit below old's capacity:
+    parameters, Adam moments, densify statistics, valid flags and
+    creation iterations."""
+    from legslam_torch.models import gaussians as G
+    n = old.capacity
+    pairs = [(getattr(getattr(new, g), k), getattr(getattr(old, g), k))
+             for g in ("params", "adam_m", "adam_v") for k in G.GROUPS]
+    pairs += [(getattr(new.stats, k), getattr(old.stats, k))
+              for k in G.STATS]
+    pairs += [(new.valid, old.valid), (new.exist_since, old.exist_since)]
+    return all(torch.equal(a[:n], b) for a, b in pairs)
+
+
+def ladder_phase(dev, card, fails, ds, frames, out_dir):
+    """Phase 10 [ladder]: phase 5's room, schedule and config through
+    GaussianMapper (its capacity ladder on, the default) fed ~3200 map
+    points a keyframe (LADDER_FRONTEND, the frontend's keypoint grid), so
+    the store starts on the first rung and keyframes' _increase_points
+    grow it x4 while training runs. Each grow_capacity is checked as it
+    happens (state_rows_equal).
+    Gates: a grow inside _increase_points after the first iteration, on
+    the card; every grow keeps the old rows bit for bit; no max_pairs
+    escalation from the first grow on (a grow raises the pair budget with
+    the rung, _ladder_cfg; span escalations follow footprints, which a
+    grow leaves alone); finite losses; keyframe PSNR 3 dB over the initial
+    map's; every kernel launched."""
+    from legslam_torch.config import RasterizeConfig
+    from legslam_torch.models import gaussians as G
+    from legslam_torch.ops.cuda import composite as cf
+    from legslam_torch.ops.cuda import composite_bwd as cb
+    from legslam_torch.ops.cuda import sort as cs
+    from legslam_torch.slam import trajectory
+    kernels = dict(composite_fwd=cf.composite_forward,
+                   composite_bwd=cb.composite_backward,
+                   sort_keys=cs.sort_keys, sort_kv=cs.sort_kv)
+    grows, grow = [], G.grow_capacity
+
+    def checked_grow(state, new_capacity):
+        caller = sys._getframe(1)
+        out = grow(state, new_capacity)
+        grows.append(dict(
+            old=state.capacity, new=new_capacity, by=caller.f_code.co_name,
+            iteration=caller.f_locals["self"].iteration,
+            device=out.valid.device.type, rows=int(state.num_valid()),
+            same=state_rows_equal(state, out)))
+        return out
+
+    cfg = RasterizeConfig(backend="cuda", mm_dtype="bfloat16", cuda_sort=True)
+    for fn in kernels.values():
+        fn.launches = 0
+    G.grow_capacity = checked_grow
+    has_cv2, trajectory._HAS_CV2 = trajectory._HAS_CV2, False
+    try:
+        with ClockSampler() as clk:
+            mapper, init, iter_ms, losses, rungs = drive_mapper(
+                dev, ds, frames, cfg, out_dir, frontend_kw=LADDER_FRONTEND)
+    finally:
+        G.grow_capacity = grow
+        trajectory._HAS_CV2 = has_cv2
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    psnr = mapper.record_keyframe_metrics("experiment")["psnr"]
+    psnr_init = keyframe_psnr(mapper, init)
+    by_ingest = [g for g in grows if g["by"] == "_increase_points" and
+                 g["iteration"] >= 1 and g["device"] == "cuda"]
+    first = min((g["iteration"] for g in grows), default=None)
+    late = [e for e in mapper.overflow_escalations if first is not None and
+            e[0] >= first and any(c.startswith("max_pairs") for c in e[1])]
+    cross = [(cap, iter_ms[i]) for cap, i in rungs.items()
+             if i > 0 and i < len(iter_ms)]
+    print(f"[ladder] phase 5's room with {LADDER_FRONTEND}: "
+          f"{mapper.iteration} iterations, {len(mapper.keyframes)} "
+          f"keyframes, num_valid {int(mapper.state.num_valid())}, capacity "
+          f"rungs {rungs} (first iteration at each); grows "
+          + ", ".join(f"{g['old']}->{g['new']} by {g['by']} at iteration "
+                      f"{g['iteration']} ({g['rows']} valid rows, old rows "
+                      f"kept bit for bit {g['same']})" for g in grows)
+          + f"; ms of the first iteration on each new rung "
+          f"{[(c, round(ms, 2)) for c, ms in cross]} against the median "
+          f"{statistics.median(iter_ms):.2f} (p90 {pct(iter_ms, 0.9):.2f}); "
+          f"escalations {mapper.overflow_escalations}; launches {launches}; "
+          f"keyframe PSNR {psnr:.2f} dB (initial map {psnr_init:.2f}) "
+          f"[{card}]")
+    print(f"[clocks] ladder mapper: {clk.summary()} [{card}]")
+    if not by_ingest:
+        fails.append(f"ladder: no grow inside _increase_points after the "
+                     f"first iteration on the card ({grows})")
+    if not all(g["same"] for g in grows):
+        fails.append("ladder: a grow changed the rows below the old capacity")
+    if late:
+        fails.append(f"ladder: max_pairs escalated after the grow {late}")
+    if not all(math.isfinite(x) for x in losses):
+        fails.append("ladder: loss not finite")
+    if not psnr >= psnr_init + 3.0:
+        fails.append(f"ladder: PSNR {psnr:.2f} not 3 dB above the initial "
+                     f"map's {psnr_init:.2f}")
+    for k, v in launches.items():
+        if v == 0:
+            fails.append(f"ladder: {k} launched no time")
+    return launches
+
+
+class LiveSet:
+    """A replaying mapper's source: the tracker's live keyframes after the
+    frame being replayed."""
+
+    def __init__(self):
+        self.live = set()
+
+    def live_keyframe_ids(self):
+        return self.live
+
+    def is_shutdown(self):
+        return False
+
+
+def loop_stream(dev):
+    """[loop]'s operations a frame: the RGB-D tracker on the host over
+    LOOP_ROOM (rendered on the card, GT hidden), then, as one more frame,
+    its loop operation republished as a Sim(3) loop (scale 1.25,
+    per-keyframe scales in [0.9, 1.1]) and a SCALE_REFINEMENT the tracker
+    builds (_apply_global_scale(1.3)), as tests/test_torch_mapper_ops.py
+    replays them. Returns (intrinsics, frontend, [(ops, live set)], the
+    tracker's LOOP_CLOSE_BA operations)."""
+    import dataclasses
+
+    from legslam_torch.data.synthetic import SyntheticDataset
+    from legslam_torch.slam import tracking as T
+    from legslam_torch.slam.interface import MappingOperation, OpKind
+    ds = SyntheticDataset(**LOOP_ROOM, device=dev)
+    fe = T.TrackingFrontend(ds.intrinsics, **LOOP_TRACK, device="cpu")
+    out = []
+    for i in range(len(ds)):
+        fe.track(hide_gt(ds.read(i)))
+        out.append((list(iter(fe.queue.pop_operation, None)),
+                    set(fe.queue.live_keyframe_ids())))
+    loops = [o for ops, _ in out for o in ops
+             if o.kind == OpKind.LOOP_CLOSE_BA]
+    if loops:
+        loop, rng = loops[0], np.random.default_rng(0)
+        sim3 = dataclasses.replace(loop, scale=1.25, keyframes=[
+            dataclasses.replace(p, scale=float(rng.uniform(0.9, 1.1)))
+            for p in loop.keyframes])
+        fe._apply_global_scale(1.3)
+        scale = MappingOperation(
+            kind=OpKind.SCALE_REFINEMENT, scale=1.3,
+            keyframes=[fe._pose_packet(f) for f in fe._kf_order])
+        out.append(([sim3, scale], out[-1][1]))
+    return ds.intrinsics, fe, out, len(loops)
+
+
+def loop_phase(dev, card, fails, out_dir):
+    """Phase 10 [loop]: loop_stream's operations replayed, with no
+    training between them, by two GaussianMappers with LOOP_MP, one on
+    the card and one on the CPU: handle_operation, cull_keyframes against
+    the tracker's live set after each frame, initialize_map once its
+    conditions hold. After every surgery (LOOP_CLOSE_BA, SCALE_REFINEMENT)
+    the two stores are compared. Gates: the tracker closes a loop; the
+    same rows valid after every surgery; xyz and the rotation parameters
+    within LOOP_TOL of each group's largest value (f32 rounding: the
+    surgery is the same arithmetic on both); the surgeries move rows."""
+    from legslam_torch.config import MapperParams
+    from legslam_torch.mapper.mapper import GaussianMapper
+    from legslam_torch.slam.interface import OpKind
+    t0 = time.perf_counter()
+    intr, fe, stream, n_loops = loop_stream(dev)
+    track_s = time.perf_counter() - t0
+    src = LiveSet()
+    card_m, cpu_m = (GaussianMapper(
+        src, intr, mp=MapperParams(**LOOP_MP), capacity=1 << 14,
+        include_lang_feat=False, seed=0, result_dir=f"{out_dir}_{d}",
+        device=d) for d in (dev, "cpu"))
+    surgeries, err, same_valid, moved = [], dict(xyz=0.0, rotation=0.0), \
+        True, 0
+    t0 = time.perf_counter()
+    for ops, live in stream:
+        for op in ops:
+            before = None if cpu_m.state is None else \
+                cpu_m.state.params.xyz.clone()
+            card_m.handle_operation(op)
+            cpu_m.handle_operation(op)
+            if op.kind not in (OpKind.LOOP_CLOSE_BA, OpKind.SCALE_REFINEMENT) \
+                    or before is None:
+                continue
+            a, b = card_m.state, cpu_m.state
+            same_valid &= torch.equal(a.valid.cpu(), b.valid)
+            for k in err:
+                x, y = getattr(a.params, k).cpu(), getattr(b.params, k)
+                err[k] = max(err[k], float((x - y).abs().max() /
+                                           y.abs().max()))
+            n = int((b.params.xyz != before).any(1).sum())
+            moved += n
+            surgeries.append(f"{op.kind.name} scale {op.scale}: {n} rows "
+                             f"moved")
+        src.live = live
+        card_m.cull_keyframes()
+        cpu_m.cull_keyframes()
+        if card_m.state is None and card_m.has_met_initial_conditions():
+            card_m.initialize_map()
+            cpu_m.initialize_map()
+    replay_s = time.perf_counter() - t0
+    n_valid = None if cpu_m.state is None else int(cpu_m.state.num_valid())
+    print(f"[loop] RGB-D tracker on the host over {LOOP_ROOM['n_frames']} "
+          f"frames {intr['width']}x{intr['height']} (GT hidden): loop "
+          f"closures {fe.n_loop_closures} ({n_loops} LOOP_CLOSE_BA), lost "
+          f"frames {fe.lost_frames}, {fe.num_keyframes} keyframes live of "
+          f"{fe.n_keyframes_created} created, {track_s:.1f} s; the replay on "
+          f"the card and the CPU "
+          f"({replay_s:.1f} s): {len(surgeries)} surgeries ("
+          + "; ".join(surgeries) + f"), num_valid {n_valid}, valid rows "
+          f"equal {same_valid}, max |card - CPU| / group max: xyz "
+          f"{err['xyz']:.3g}, rotation {err['rotation']:.3g} (tolerance "
+          f"{LOOP_TOL:g}) [{card}]")
+    if fe.n_loop_closures < 1 or n_loops < 1:
+        fails.append("loop: the tracker closed no loop")
+    if not surgeries or not moved:
+        fails.append(f"loop: no surgery moved a row ({surgeries})")
+    if not same_valid:
+        fails.append("loop: the card's and the CPU's valid rows differ")
+    for k, v in err.items():
+        if not v <= LOOP_TOL:
+            fails.append(f"loop: {k} {v:.3g} apart, over {LOOP_TOL:g}")
+
+
 def build_phase():
     from legslam_torch import _build
     names = ("composite_fwd", "composite_bwd", "sort")
@@ -2970,9 +3231,18 @@ def main() -> int:
     slabs_cull_phase(dev, card, fails, st, view, gt, ds, frames,
                      str(out_dir) + "_slabs")
     store_phase(dev, card, fails, ds)
-    del st, view, gt, ds, frames
+    del st, view, gt
     torch.cuda.empty_cache()
     phase_s["phase9"] = time.perf_counter() - t_phase
+
+    # phase 10: a capacity rung crossed and loop-closure surgery, on the card
+    t_phase = time.perf_counter()
+    ladder_launches = ladder_phase(dev, card, fails, ds, frames,
+                                   str(out_dir) + "_ladder")
+    del ds, frames
+    torch.cuda.empty_cache()
+    loop_phase(dev, card, fails, str(out_dir) + "_loop")
+    phase_s["phase10"] = time.perf_counter() - t_phase
     print(f"[phases] seconds {({k: round(v, 1) for k, v in phase_s.items()})}"
           f", total {sum(phase_s.values()):.1f} [{card}]")
 
@@ -2987,6 +3257,7 @@ def main() -> int:
                          launches=launches[k],
                          query_launches=query_launches[name],
                          visual_launches=visual_launches[name],
+                         ladder_launches=ladder_launches[name],
                          max_abs_err=errs[k],
                          ms=times[k], plain_ms=times[f"{k}_plain"],
                          bound_ms=b[k]["bound_ms"],
@@ -3004,6 +3275,7 @@ def main() -> int:
                          launches=mapper_launches[name],
                          query_launches=query_launches[name],
                          visual_launches=visual_launches[name],
+                         ladder_launches=ladder_launches[name],
                          max_abs_err=sort_errs[name], ms=sort_times[name],
                          plain_ms=sort_times[f"{name}_plain"],
                          bound_ms=sort_bnd[name]["bound_ms"],

@@ -34,8 +34,12 @@ from legslam_torch.slam.interface import MappingOperation, OpKind
 from tests.test_torch_tracking import (assert_frontends_equal,
                                        assert_streams_equal, render,
                                        run_both)
+from tests.torch_native_pin import jax_native_pin
 
 torch.set_num_threads(1)
+
+# pytest finds fixtures by name in the module that uses them
+jax_native_pin = jax_native_pin
 
 LOOP = dict(n_frames=64, width=160, height=96, n_gaussians=5000,
             revolutions=1.0, radius=1.0, clutter_ratio=0.0)
@@ -58,7 +62,7 @@ class LiveSet:
 
 
 @pytest.fixture(scope="module")
-def loop_run():
+def loop_run(jax_native_pin):
     from legslam_tpu.slam import tracking as JT
     from legslam_torch.slam import tracking as TT
     intr, frames = render(**LOOP)

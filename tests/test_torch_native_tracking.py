@@ -1,12 +1,19 @@
 """legslam_torch's native tracking core (csrc/tracking_core.cpp through
 slam/native.py, built with g++ into build/legslam_torch/) against the JAX
 package's (native/tracking_core.cpp): Shi-Tomasi corners and pyramidal KLT
-tracks bit for bit on the scenes of tests/test_native_tracking.py (the
-same source and flags on the same host give the same code), that file's
-behaviour tests run on the port, and the build's FTZ/DAZ hygiene."""
+tracks bit for bit on the scenes of tests/test_native_tracking.py, that
+file's behaviour tests run on the port, and the build's FTZ/DAZ hygiene.
+
+The same source with the same flags on the same host gives the same code,
+but an -O3 build's KLT tracks differ from the fast build's in the last
+bits. The JAX core compared here is therefore a private build of this
+process (tests/torch_native_pin.py) whose recorded flags are the port's
+library's, never the shared native/libtracking_core.so, which concurrent
+test processes can leave an -O3 build."""
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -14,14 +21,35 @@ import torch
 
 from legslam_tpu.slam import native as JN
 from legslam_torch.slam import native as TN
-from tests.test_native_tracking import H, W, _scene
+from tests import torch_native_pin as NP
+from tests.torch_native_pin import jax_native_pin
 
 torch.set_num_threads(1)
+
+# pytest finds fixtures by name in the module that uses them
+jax_native_pin = jax_native_pin
+
+# the scene of tests/test_native_tracking.py, copied: importing that
+# module loads the shared native/libtracking_core.so (its skipif mark)
+H, W = 120, 160
+
+
+def _scene(rng):
+    """Textured float image with strong corners."""
+    img = rng.uniform(0.2, 0.4, size=(H, W)).astype(np.float32)
+    for (y, x) in [(30, 40), (30, 110), (80, 40), (80, 110), (55, 75)]:
+        img[y:y + 14, x:x + 14] += 0.5
+    return np.clip(img, 0, 1)
+
+
+# the settings of test_klt_tracks_match_jax_core
+KLT_CASES = [((3, -2), 10, 30), ((2, 0), 10, 30), ((3, -2), 7, 12)]
 
 
 @pytest.mark.parametrize("seed,max_corners,min_distance",
                          [(0, 64, 5), (1, 64, 9), (2, 32, 5), (3, 32, 7)])
-def test_corners_match_jax_core(seed, max_corners, min_distance):
+def test_corners_match_jax_core(jax_native_pin, seed, max_corners,
+                                min_distance):
     assert JN.available()
     img = _scene(np.random.default_rng(seed))
     a = TN.detect_corners(img, max_corners, min_distance=min_distance)
@@ -30,18 +58,56 @@ def test_corners_match_jax_core(seed, max_corners, min_distance):
     np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("shift,win,iters", [((3, -2), 10, 30),
-                                             ((2, 0), 10, 30),
-                                             ((3, -2), 7, 12)])
-def test_klt_tracks_match_jax_core(shift, win, iters):
+def _klt_scene(shift):
     img = _scene(np.random.default_rng(2))
     dx, dy = shift
     moved = np.roll(np.roll(img, dy, axis=0), dx, axis=1)
-    pts = TN.detect_corners(img, 32, min_distance=5)
+    return img, moved, TN.detect_corners(img, 32, min_distance=5)
+
+
+@pytest.mark.parametrize("shift,win,iters", KLT_CASES)
+def test_klt_tracks_match_jax_core(jax_native_pin, shift, win, iters):
+    img, moved, pts = _klt_scene(shift)
     a, ok_a = TN.klt_track(img, moved, pts, win=win, iters=iters)
     b, ok_b = JN.klt_track(img, moved, pts, win=win, iters=iters)
     np.testing.assert_array_equal(ok_a, ok_b)
     np.testing.assert_array_equal(a, b)
+
+
+def test_parity_cases_use_a_private_jax_build(jax_native_pin):
+    """The JAX core these cases compare with is this process's private
+    build, not the shared native/libtracking_core.so, and it was built
+    with the flags of the port's library."""
+    lib = JN.load()
+    assert Path(lib._name).resolve() != NP.SHARED_LIB.resolve()
+    assert NP.recorded_flags(lib) == list(NP.port_flags())
+
+
+def test_fast_and_plain_builds_track_apart(tmp_path):
+    """Why the flags must match: the JAX core built with -O3 and with the
+    fast set, each by the JAX module's own build, gives KLT tracks that
+    differ on the scene of test_klt_tracks_match_jax_core (by 7.6e-6 to
+    1.5e-5 px on an x86-64 host), while both track the same points."""
+    libs = {name: NP.build_jax_core(tmp_path / name, flags)
+            for name, flags in (("plain", ["-O3"]),
+                                ("fast", NP.FAST_FLAGS))}
+    if libs["fast"] is None:
+        pytest.skip(f"g++ rejects {' '.join(NP.FAST_FLAGS)} on this host")
+    assert libs["plain"] is not None
+    diff = 0.0
+    for shift, win, iters in KLT_CASES:
+        img, moved, pts = _klt_scene(shift)
+        out = {}
+        for name, lib in libs.items():
+            with NP.bound(tmp_path / name / NP.JAX_SRC.name, lib):
+                out[name] = JN.klt_track(img, moved, pts, win=win,
+                                         iters=iters)
+        np.testing.assert_array_equal(out["plain"][1], out["fast"][1])
+        diff = max(diff, float(np.abs(out["plain"][0] -
+                                      out["fast"][0]).max()))
+    if diff == 0.0:
+        pytest.skip("the -O3 and fast builds track alike on this host")
+    assert diff < 1e-3, "the two builds track different points"
 
 
 def test_detect_finds_block_corners():

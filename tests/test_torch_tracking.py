@@ -2,14 +2,18 @@
 legslam_tpu's, RGB-D mode, on the CPU.
 
 Both packages take the native route (LEGSLAM_NATIVE_TRACKING=1, set with
-monkeypatch for both): their C++ cores are built from the same source with
-the same flags on this host, so corners and tracks agree bit for bit, and
-their RANSACs draw from numpy Generators seeded alike. The frames are
-rendered once with the port's SyntheticDataset and wrapped in each
-package's RGBDFrame, so both trackers see the same arrays. The operation
-streams must agree: R and t within 1e-6 (expected identical), everything
-else exactly (kinds, fids, scales, points, kp_pixels, kp_points_local, the
-live keyframes, lost frames and trajectory()).
+monkeypatch for both). Their C++ cores are built from the same source
+with the same flags in this process: the port's by its own loader, the
+JAX package's privately by tests/torch_native_pin.py, which checks the
+flags (the shared native/libtracking_core.so can be left an -O3 build by
+concurrent test processes, whose KLT tracks differ in the last bits). So
+corners and tracks agree bit for bit, and the RANSACs draw from numpy
+Generators seeded alike. The frames are rendered once with the port's
+SyntheticDataset and wrapped in each package's RGBDFrame, so both
+trackers see the same arrays. The operation streams must agree: R and t
+within 1e-6 (expected identical), everything else exactly (kinds, fids,
+scales, points, kp_pixels, kp_points_local, the live keyframes, lost
+frames and trajectory()).
 
 The helpers here are shared with tests/test_torch_tracking_modes.py and
 tests/test_torch_mapper_ops.py, which holds the loop-closure case (its
@@ -22,8 +26,12 @@ import pytest
 import torch
 
 from legslam_torch.data.synthetic import SyntheticDataset
+from tests.torch_native_pin import jax_native_pin
 
 torch.set_num_threads(1)
+
+# pytest finds fixtures by name in the module that uses them
+jax_native_pin = jax_native_pin
 
 # the scene of tests/test_tracking.py (gentle_seq)
 GENTLE = dict(n_frames=20, width=256, height=144, n_gaussians=7000,
@@ -45,7 +53,9 @@ def as_frame(module, fr, **changes):
 
 
 @pytest.fixture
-def native_route(monkeypatch):
+def native_route(monkeypatch, jax_native_pin):
+    """Both trackers' modules on the native route, the JAX one on the
+    private build of tests/torch_native_pin.py."""
     monkeypatch.setenv("LEGSLAM_NATIVE_TRACKING", "1")
     from legslam_tpu.slam import tracking as JT
     from legslam_torch.slam import tracking as TT

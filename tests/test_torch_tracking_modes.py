@@ -19,13 +19,13 @@ import pytest
 import torch
 
 from tests.test_torch_tracking import (assert_frontends_equal,
-                                       assert_streams_equal, native_route,
-                                       render, run_both)
+                                       assert_streams_equal, jax_native_pin,
+                                       native_route, render, run_both)
 
 torch.set_num_threads(1)
 
 # pytest finds fixtures by name in the module that uses them
-native_route = native_route
+jax_native_pin, native_route = jax_native_pin, native_route
 
 MONO = dict(n_frames=24, width=256, height=144, n_gaussians=7000,
             revolutions=0.15, clutter_ratio=0.0)

@@ -23,7 +23,12 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_native_pin import jax_native_pin
+
 torch.set_num_threads(1)
+
+# pytest finds fixtures by name in the module that uses them
+jax_native_pin = jax_native_pin
 
 FWD_TOL = dict(atol=3e-5, rtol=1e-3)
 
@@ -135,9 +140,10 @@ def test_mapper_render_matches(tmp_path):
 
 
 @pytest.fixture(scope="module")
-def trackers():
+def trackers(jax_native_pin):
     """Both packages' RGB-D trackers over the 4-frame scene of
-    tests/test_aux_components.py:193, on the native route."""
+    tests/test_aux_components.py:193, on the native route (the JAX one on
+    the private build of tests/torch_native_pin.py)."""
     from legslam_tpu.data import datasets as JD
     from legslam_tpu.slam import tracking as JT
     from legslam_torch.data.synthetic import SyntheticDataset
