@@ -2,8 +2,9 @@
 """Build legslam_torch's CUDA kernels and drive the port's mapping step, its
 online mapper, its language-feature encoder, its RGB-D system loop, its
 open-vocabulary query and serving stack, its visual tracking frontend
-(RGB-D, stereo with SGM, monocular) with the live viewer, and its bucketed,
-strip, multi-view and slab-skipped paths on one NVIDIA H100.
+(RGB-D, stereo with SGM, monocular, the inertial modes) with the live
+viewer, its bucketed, strip, multi-view and slab-skipped paths and its
+lens-distorted camera on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -111,7 +112,20 @@ Phases (each prints one or more lines; any failure exits non-zero):
      its operations (and a Sim(3) loop and a scale refinement built from
      them) replayed by a mapper on the card and one on the CPU, the stores
      compared after every surgery;
- 11. a {"kernels": [...]} line, then the card line, then as the last line
+ 11. the lens-distorted camera and the inertial sensor modes (see
+     undistort_phase, inertial_phase): [undistort] the shipped TUM fr1
+     camera and mapper configs, a 24-frame 640x480 room rendered pinhole
+     and distorted on the host, through the GT-pose frontend and
+     GaussianMapper on the four kernels, which undistorts each keyframe
+     and masks its loss; the keyframes against a CPU mapper's, the
+     undistortion against the pinhole render, the mask's invalid share,
+     the masked loss on the card, the PSNR; [inertial] (a) mono-inertial
+     and (b) rgbd-inertial through a 4-frame blackout on [mono]'s room
+     with a 200 Hz IMU stream, each beside a mapper on the card, and (c)
+     the app (apps/replica_rgbd.main --frontend visual --sensor auto) on
+     a EuRoC layout with imu0 written at 752x480: stereo-inertial, SGM on
+     the card, the shipped EuRoC stereo mapper config cut to the time;
+ 12. a {"kernels": [...]} line, then the card line, then as the last line
      {"ok": true, "device": {...}}.
 
 Each kernel's `launches` is its count over the path that runs it: the
@@ -119,9 +133,11 @@ compositing kernels' over phase 4's 24 steps, the sort kernels' over
 phase 5's training loop (phase 4 runs cuda_sort at its default and
 counts their launches too); `query_launches` is its count over phase 7's
 pixel-space search, `visual_launches` over phase 8's [visual] system loop,
-`ladder_launches` over phase 10's [ladder] run, and a compositing
-kernel's `bucketed_*` keys are phase 9's [buckets] readings (its
-launches over the 8 bucketed steps).
+`ladder_launches` over phase 10's [ladder] run, `undistort_launches`
+over phase 11's [undistort] run and `inertial_launches` over its three
+[inertial] runs together, and a compositing kernel's `bucketed_*` keys
+are phase 9's [buckets] readings (its launches over the 8 bucketed
+steps).
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result. Imports nothing of JAX.
 """
@@ -606,6 +622,16 @@ def sync(dev):
         torch.cuda.synchronize(dev)
 
 
+def path_kernels() -> dict:
+    """The four kernel wrappers of the mapping path, by kernel name."""
+    from legslam_torch.ops.cuda import composite as cf
+    from legslam_torch.ops.cuda import composite_bwd as cb
+    from legslam_torch.ops.cuda import sort as cs
+    return dict(composite_fwd=cf.composite_forward,
+                composite_bwd=cb.composite_backward,
+                sort_keys=cs.sort_keys, sort_kv=cs.sort_kv)
+
+
 # --- the sort kernels --------------------------------------------------------
 
 def sort_launches(key_bits: int, with_values: bool = False) -> str:
@@ -755,13 +781,15 @@ MAPPER_ROOM = dict(n_frames=40, width=1200, height=680, n_gaussians=200_000,
 
 
 def drive_mapper(dev, ds, frames, cfg, out_dir, max_per_tile=2048,
-                 frontend_kw=None, **mapper_kw):
+                 frontend_kw=None, intr=None, opt=None, mp=None,
+                 **mapper_kw):
     """Drive GaussianMapper over `frames` as the app loop does (track,
     drain, initialize_map, train_iteration; then the tail), with a seeded
     unit-norm 37x37x64 LF grid a frame standing in for the encoder;
     frontend_kw go to the TrajectoryFrontend, mapper_kw to the mapper
-    (n_views, spatial_strips, shard_store). Returns the mapper, a copy of
-    its store right after initialize_map, the ms per iteration, the
+    (n_views, spatial_strips, shard_store); intr, opt and mp replace the
+    room's intrinsics and phase 5's schedule. Returns the mapper, a copy
+    of its store right after initialize_map, the ms per iteration, the
     synced losses and the capacity rungs ({capacity: index of the first
     iteration at it})."""
     from legslam_torch.config import MapperParams, OptimizationParams
@@ -773,12 +801,14 @@ def drive_mapper(dev, ds, frames, cfg, out_dir, max_per_tile=2048,
     def lf_grid():
         lf = rng.normal(size=(37, 37, 64)).astype(np.float32)
         return lf / np.linalg.norm(lf, axis=-1, keepdims=True)
+    intr = intr or ds.intrinsics
     frontend = TrajectoryFrontend(
-        ds.intrinsics, **{"kf_stride": 4, **(frontend_kw or {})})
+        intr, **{"kf_stride": 4, **(frontend_kw or {})})
     # densify every 50 iterations from 40: four times in the run
-    opt = OptimizationParams(densify_from_iter=40, densification_interval=50)
-    mapper = GaussianMapper(frontend.queue, ds.intrinsics, opt=opt,
-                            mp=MapperParams(min_num_initial_map_kfs=4),
+    opt = opt or OptimizationParams(densify_from_iter=40,
+                                    densification_interval=50)
+    mapper = GaussianMapper(frontend.queue, intr, opt=opt,
+                            mp=mp or MapperParams(min_num_initial_map_kfs=4),
                             cfg=cfg, capacity=1 << 18, result_dir=out_dir,
                             max_per_tile=max_per_tile,
                             binning_refresh_interval=8, device=dev,
@@ -811,19 +841,25 @@ def drive_mapper(dev, ds, frames, cfg, out_dir, max_per_tile=2048,
 
 
 @torch.no_grad()
-def keyframe_psnr(mapper, state=None) -> float:
+def keyframe_psnr(mapper, state=None, masked=False) -> float:
     """Mean PSNR over the mapper's keyframes at full resolution of `state`
     (the mapper's own store by default), as record_keyframe_metrics
-    computes it."""
+    computes it; `masked` keeps only the pixels each keyframe's valid mask
+    keeps (>= 0.999), the pixels a distorted camera's loss sees."""
     from legslam_torch.ops import losses as L
     final = mapper.state
     mapper.state = final if state is None else state
     try:
-        return statistics.mean(
-            float(L.psnr_gaussian_splatting(mapper.render_from_pose(
-                kf.R, kf.t, kf.views[-1].width, kf.views[-1].height).color,
-                kf.gt_color[-1]))
-            for kf in mapper.keyframes.values())
+        out = []
+        for kf in mapper.keyframes.values():
+            img = mapper.render_from_pose(kf.R, kf.t, kf.views[-1].width,
+                                          kf.views[-1].height).color
+            gt = kf.gt_color[-1]
+            if masked:
+                keep = kf.mask[-1] >= 0.999
+                img, gt = img[keep][:, None], gt[keep][:, None]
+            out.append(float(L.psnr_gaussian_splatting(img, gt)))
+        return statistics.mean(out)
     finally:
         mapper.state = final
 
@@ -881,13 +917,8 @@ def mapper_phase(dev, card, fails, out_dir, ds, frames, render_s):
     from legslam_torch.config import RasterizeConfig
     from legslam_torch.models import gaussians as G
     from legslam_torch.ops import losses as L
-    from legslam_torch.ops.cuda import composite as cf
-    from legslam_torch.ops.cuda import composite_bwd as cb
-    from legslam_torch.ops.cuda import sort as cs
     secs = {"render": render_s}
-    kernels = dict(composite_fwd=cf.composite_forward,
-                   composite_bwd=cb.composite_backward,
-                   sort_keys=cs.sort_keys, sort_kv=cs.sort_kv)
+    kernels = path_kernels()
 
     t0 = time.perf_counter()
     cfg = RasterizeConfig(backend="cuda", mm_dtype="bfloat16", cuda_sort=True)
@@ -1211,9 +1242,6 @@ def system_phase(dev, card, fails, out_dir, ds, frames, enc):
                                       RasterizeConfig)
     from legslam_torch.mapper.mapper import GaussianMapper
     from legslam_torch.models import gaussians as G
-    from legslam_torch.ops.cuda import composite as cf
-    from legslam_torch.ops.cuda import composite_bwd as cb
-    from legslam_torch.ops.cuda import sort as cs
     from legslam_torch.slam.trajectory import TrajectoryFrontend
     frontend = TrajectoryFrontend(ds.intrinsics, kf_stride=4)
     opt = OptimizationParams(densify_from_iter=40, densification_interval=50)
@@ -1232,9 +1260,7 @@ def system_phase(dev, card, fails, out_dir, ds, frames, enc):
         init.append(G.copy_state(mapper.state))
     mapper.initialize_map = initialize_and_copy
     timed = TimedEncoder(enc)
-    kernels = dict(composite_fwd=cf.composite_forward,
-                   composite_bwd=cb.composite_backward,
-                   sort_keys=cs.sort_keys, sort_kv=cs.sort_kv)
+    kernels = path_kernels()
     lfs, frame_ms = {}, []
     sync(dev)
     with ClockSampler() as clk:
@@ -1480,9 +1506,6 @@ def query_phase(dev, card, fails, out_dir: Path, pca):
     from legslam_torch.models import lpips as LP
     from legslam_torch.models import talk2dino as T2D
     from legslam_torch.models.pamr import pamr
-    from legslam_torch.ops.cuda import composite as cf
-    from legslam_torch.ops.cuda import composite_bwd as cb
-    from legslam_torch.ops.cuda import sort as cs
     from legslam_torch.serving import api
 
     # the text pipeline, on the card and (one category) on the CPU
@@ -1613,9 +1636,7 @@ def query_phase(dev, card, fails, out_dir: Path, pca):
         fails.append(f"query server: center errors {errs} m")
 
     # the pixel-space search on the kernels, then the witness
-    kernels = dict(composite_fwd=cf.composite_forward,
-                   composite_bwd=cb.composite_backward,
-                   sort_keys=cs.sort_keys, sort_kv=cs.sort_kv)
+    kernels = path_kernels()
     split = dict(render=[], pamr=[])
 
     def timed(name, fn):
@@ -1866,9 +1887,6 @@ def visual_phase(dev, card, fails, out_dir, enc):
     from legslam_torch.data.synthetic import SyntheticDataset
     from legslam_torch.mapper.mapper import GaussianMapper
     from legslam_torch.models import gaussians as G
-    from legslam_torch.ops.cuda import composite as cf
-    from legslam_torch.ops.cuda import composite_bwd as cb
-    from legslam_torch.ops.cuda import sort as cs
     from legslam_torch.slam import tracking as T
     secs = {}
     t0 = time.perf_counter()
@@ -1934,9 +1952,7 @@ def visual_phase(dev, card, fails, out_dir, enc):
     host.wrap(mapper, "drain_operations")
     host.wrap(mapper, "train_iteration")
     timed = TimedEncoder(enc)
-    kernels = dict(composite_fwd=cf.composite_forward,
-                   composite_bwd=cb.composite_backward,
-                   sort_keys=cs.sort_keys, sort_kv=cs.sort_kv)
+    kernels = path_kernels()
     lfs, frame_ms = {}, []
     sync(dev)
     with ClockSampler() as clk:
@@ -2508,12 +2524,7 @@ def mapper_run(dev, card, fails, label, ds, frames, out_dir, p_slabs=0,
     3 dB over the initial map's,
     every kernel launched. Returns (mapper, ms per tick, launches)."""
     from legslam_torch.config import RasterizeConfig
-    from legslam_torch.ops.cuda import composite as cf
-    from legslam_torch.ops.cuda import composite_bwd as cb
-    from legslam_torch.ops.cuda import sort as cs
-    kernels = dict(composite_fwd=cf.composite_forward,
-                   composite_bwd=cb.composite_backward,
-                   sort_keys=cs.sort_keys, sort_kv=cs.sort_kv)
+    kernels = path_kernels()
     cfg = RasterizeConfig(backend="cuda", mm_dtype="bfloat16", cuda_sort=True,
                           p_slabs=p_slabs)
     for fn in kernels.values():
@@ -2828,13 +2839,8 @@ def ladder_phase(dev, card, fails, ds, frames, out_dir):
     map's; every kernel launched."""
     from legslam_torch.config import RasterizeConfig
     from legslam_torch.models import gaussians as G
-    from legslam_torch.ops.cuda import composite as cf
-    from legslam_torch.ops.cuda import composite_bwd as cb
-    from legslam_torch.ops.cuda import sort as cs
     from legslam_torch.slam import trajectory
-    kernels = dict(composite_fwd=cf.composite_forward,
-                   composite_bwd=cb.composite_backward,
-                   sort_keys=cs.sort_keys, sort_kv=cs.sort_kv)
+    kernels = path_kernels()
     grows, grow = [], G.grow_capacity
 
     def checked_grow(state, new_capacity):
@@ -3021,6 +3027,646 @@ def loop_phase(dev, card, fails, out_dir):
     for k, v in err.items():
         if not v <= LOOP_TOL:
             fails.append(f"loop: {k} {v:.3g} apart, over {LOOP_TOL:g}")
+
+
+# --- phase 11: the lens-distorted camera and the inertial sensor modes -----
+
+CFG_DIR = Path(__file__).resolve().parent / "cfg"
+TUM_CAMERA = "camera/RGB-D/TUM/tum_freiburg1_desk.yaml"
+TUM_MAPPER = "gaussian_mapper/RGB-D/TUM/tum_freiburg1_desk.yaml"
+# [visual]'s surface room of 40k gaussians, 24 frames at the TUM camera's
+# 640x480
+UNDISTORT_ROOM = dict(n_frames=24, width=640, height=480,
+                      n_gaussians=40_000, seed=3, clutter_ratio=0.0,
+                      revolutions=0.15)
+# the one cut of the shipped TUM mapper config: 24 frames give 6
+# keyframes, so the map starts at the 4th (shipped: 10)
+UNDISTORT_MP = dict(min_num_initial_map_kfs=4)
+# gates: the valid mask's invalid share (mask < 0.5; TUM fr1's is 5.64%
+# on the host), the undistorted keyframe's gain over the raw frame, and
+# the keyframe tolerances of tests/test_torch_mapper.py:104-107 for the
+# resized sub-levels (color, depth, mask: at most one step, on under 0.5%
+# of the values)
+INVALID_SHARE = (0.04, 0.08)
+UNDISTORT_GAIN = 3.0
+KF_STEPS = dict(gt_color=1 / 255, gt_depth=1e-3, mask=1e-6)
+
+
+def pinhole_sources(intr, iters=20):
+    """For each pixel of the camera `intr`, with its dist_coeffs, the
+    pixel of the pinhole camera of the same K that it sees: the
+    normalized point undistorted by the fixed-point iteration of
+    cv2.undistortPoints, projected with K. Returns (map_x, map_y, the
+    largest residual in px when the result is distorted back)."""
+    from legslam_torch.utils.undistort import distort_normalized
+    w, h = int(intr["width"]), int(intr["height"])
+    dist = intr["dist_coeffs"]
+    k1, k2, p1, p2, k3 = (list(dist) + [0.0] * 5)[:5]
+    u, v = np.meshgrid(np.arange(w, dtype=np.float64),
+                       np.arange(h, dtype=np.float64))
+    xd = (u - intr["cx"]) / intr["fx"]
+    yd = (v - intr["cy"]) / intr["fy"]
+    x, y = xd, yd
+    for _ in range(iters):
+        r2 = x * x + y * y
+        icdist = 1.0 / (1.0 + ((k3 * r2 + k2) * r2 + k1) * r2)
+        dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+        dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+        x, y = (xd - dx) * icdist, (yd - dy) * icdist
+    xr, yr = distort_normalized(x, y, dist)
+    resid = max(float(np.abs(xr - xd).max()) * intr["fx"],
+                float(np.abs(yr - yd).max()) * intr["fy"])
+    return ((intr["fx"] * x + intr["cx"]).astype(np.float32),
+            (intr["fy"] * y + intr["cy"]).astype(np.float32), resid)
+
+
+def distort_frame(frame, map_x, map_y):
+    """`frame` as the distorted camera sees it (pinhole_sources' maps): the
+    color sampled bilinearly, the depth from the nearest pixel (a sensor
+    reports no blend of two surfaces)."""
+    import dataclasses
+    from legslam_torch.utils.undistort import remap_bilinear
+    h, w = frame.depth.shape
+    xi = np.rint(map_x).astype(np.int64)
+    yi = np.rint(map_y).astype(np.int64)
+    inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+    depth = np.where(inside, frame.depth[np.clip(yi, 0, h - 1),
+                                         np.clip(xi, 0, w - 1)], 0.0)
+    return dataclasses.replace(
+        frame, color=remap_bilinear(frame.color, map_x, map_y),
+        depth=depth.astype(np.float32))
+
+
+def keyframes_match(a, b) -> tuple[bool, dict]:
+    """Whether mapper a's keyframes equal mapper b's: the full level bit
+    for bit; and each field's largest sub-level difference in KF_STEPS
+    units and its share of differing values."""
+    exact, worst = True, {}
+    for fid, kb in b.keyframes.items():
+        ka = a.keyframes[fid]
+        for name, step in KF_STEPS.items():
+            levels = list(zip(getattr(ka, name), getattr(kb, name)))
+            for lvl, (x, y) in enumerate(levels):
+                x, y = x.cpu().numpy(), y.cpu().numpy()
+                if lvl == len(levels) - 1:
+                    exact &= bool(np.array_equal(x, y))
+                    continue
+                d = np.abs(x - y)
+                steps, share = worst.get(name, (0.0, 0.0))
+                worst[name] = (max(steps, float(d.max()) / step),
+                               max(share, float((d > 0).mean())))
+    return exact, worst
+
+
+def undistort_phase(dev, card, fails, out_dir):
+    """Phase 11 [undistort]: the shipped TUM fr1 camera (640x480, five
+    distortion coefficients) and mapper config through the port's
+    loaders; UNDISTORT_ROOM rendered with the camera's pinhole K and
+    distorted on the host (pinhole_sources, distort_frame); the GT-pose
+    frontend with a keyframe every 4th frame and GaussianMapper on "cuda"
+    (bf16, cuda_sort, capacity 2^18, 7 iterations a frame, then the tail),
+    which undistorts each keyframe on the host and gates its loss with
+    the valid mask.
+    Gates: the keyframes equal a CPU mapper's fed the same packets (the
+    full level bit for bit, the resized sub-levels within KF_STEPS);
+    inside the valid mask the undistorted gt_color is UNDISTORT_GAIN
+    times closer (mean abs) to the pinhole render than the raw frame is;
+    the mask's invalid share lies in INVALID_SHARE; garbage in the invalid
+    region of a keyframe's render leaves its mapping_loss unchanged to
+    rtol 1e-6 on the card; the keyframe PSNR inside the mask 3 dB over the
+    initial map's; every kernel launched. Returns the launches."""
+    import dataclasses
+    from legslam_torch.config import RasterizeConfig, load_run_config
+    from legslam_torch.data.synthetic import SyntheticDataset
+    from legslam_torch.mapper.mapper import GaussianMapper
+    from legslam_torch.ops import losses as L
+    from legslam_torch.slam.interface import OperationQueue
+    from legslam_torch.utils import undistort as U
+    opt, mp, intr = load_run_config(str(CFG_DIR / TUM_MAPPER),
+                                    str(CFG_DIR / TUM_CAMERA))
+    mp = dataclasses.replace(mp, **UNDISTORT_MP)
+    t0 = time.perf_counter()
+    ds = SyntheticDataset(**UNDISTORT_ROOM, device=dev)
+    ds.intrinsics = {k: intr[k]
+                     for k in ("width", "height", "fx", "fy", "cx", "cy")}
+    pinhole = [ds.read(i) for i in range(len(ds))]
+    map_x, map_y, resid = pinhole_sources(intr)
+    raw = [distort_frame(f, map_x, map_y) for f in pinhole]
+    render_s = time.perf_counter() - t0
+
+    # the packets the mapper ingests, and the host ms of each remap
+    packets, remap_ms = [], []
+    ingest = GaussianMapper._ingest_keyframe
+    remap = U.Undistortion.undistort_image
+
+    def recorded(self, packet):
+        if packet.fid not in self.keyframes:
+            packets.append(packet)
+        return ingest(self, packet)
+
+    def timed(self, img):
+        ta = time.perf_counter()
+        try:
+            return remap(self, img)
+        finally:
+            remap_ms.append((time.perf_counter() - ta) * 1e3)
+
+    kernels = path_kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    cfg = RasterizeConfig(backend="cuda", mm_dtype="bfloat16", cuda_sort=True)
+    GaussianMapper._ingest_keyframe = recorded
+    U.Undistortion.undistort_image = timed
+    t0 = time.perf_counter()
+    try:
+        with ClockSampler() as clk:
+            mapper, init, iter_ms, losses, _ = drive_mapper(
+                dev, ds, raw, cfg, out_dir, intr=intr, opt=opt, mp=mp)
+    finally:
+        GaussianMapper._ingest_keyframe = ingest
+        U.Undistortion.undistort_image = remap
+    run_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    und = mapper.undistortion
+    if und is None:
+        fails.append("undistort: the mapper built no undistortion for "
+                     f"dist_coeffs {intr.get('dist_coeffs')}")
+        return launches
+
+    # the same packets through a CPU mapper
+    cpu = GaussianMapper(OperationQueue(), intr, opt=opt, mp=mp, cfg=cfg,
+                         capacity=1 << 10, result_dir=out_dir + "_cpu",
+                         device="cpu")
+    for p in packets:
+        cpu._ingest_keyframe(p)
+    exact, worst = keyframes_match(mapper, cpu)
+
+    # inside the valid mask: the undistorted keyframe against the pinhole
+    # render, and the raw frame against it
+    keep = und.valid_mask >= 0.999
+    mae_und = statistics.mean(
+        float(np.abs(kf.gt_color[-1].cpu().numpy()
+                     - pinhole[fid].color)[keep].mean())
+        for fid, kf in mapper.keyframes.items())
+    mae_raw = statistics.mean(
+        float(np.abs(raw[fid].color - pinhole[fid].color)[keep].mean())
+        for fid in mapper.keyframes)
+    invalid = float((und.valid_mask < 0.5).mean())
+
+    # garbage in the invalid region of a keyframe's render, on the card
+    kf = mapper.keyframes[max(mapper.keyframes)]
+    v = kf.views[-1]
+    with torch.no_grad():
+        out = mapper.render_from_pose(kf.R, kf.t, v.width, v.height)
+        m = kf.mask[-1]
+        bad = m == 0
+        loss = []
+        for color, depth in ((out.color, out.depth),
+                             (out.color.masked_fill(bad[..., None], 123.0),
+                              out.depth.masked_fill(bad, 123.0))):
+            loss.append(float(L.mapping_loss(
+                color, kf.gt_color[-1], None, None, depth, kf.gt_depth[-1],
+                m, opt.lambda_dssim)))
+    n_bad = int(bad.sum())
+    psnr = keyframe_psnr(mapper, masked=True)
+    psnr_init = keyframe_psnr(mapper, init, masked=True)
+    per_kf = [sum(remap_ms[i:i + 2]) for i in range(0, len(remap_ms), 2)]
+    print(f"[undistort] {TUM_CAMERA} ({intr['width']}x{intr['height']}, fx "
+          f"{intr['fx']}, dist_coeffs {intr['dist_coeffs']}) with "
+          f"{TUM_MAPPER} (cut: min_num_initial_map_kfs "
+          f"{UNDISTORT_MP['min_num_initial_map_kfs']}); {len(raw)} frames of"
+          f" {UNDISTORT_ROOM['n_gaussians']} gaussians rendered pinhole and "
+          f"distorted on the host (inverse residual {resid:.2g} px) in "
+          f"{render_s:.1f} s; {len(mapper.keyframes)} keyframes; invalid "
+          f"share {invalid:.4f}; card keyframes vs CPU: full level bit for "
+          f"bit {exact}, sub-levels (steps, share) "
+          f"{({k: (round(a, 3), round(b, 5)) for k, (a, b) in worst.items()})}"
+          f"; mean abs to the pinhole render inside the mask: undistorted "
+          f"{mae_und:.5f}, raw {mae_raw:.5f} ({mae_raw / mae_und:.1f}x); "
+          f"loss with {n_bad} invalid pixels garbage {loss[1]:.8f} against "
+          f"{loss[0]:.8f}; {mapper.iteration} iterations, ms per iteration "
+          f"median {statistics.median(iter_ms):.2f} p90 "
+          f"{pct(iter_ms, 0.9):.2f}; host ms in undistort_image per keyframe"
+          f" (color + depth) median {statistics.median(per_kf):.2f} (max "
+          f"{max(per_kf):.2f}, {len(per_kf)} keyframes); keyframe PSNR "
+          f"inside the mask {psnr:.2f} dB (initial map {psnr_init:.2f}); "
+          f"launches {launches}; run {run_s:.1f} s [{card}]")
+    print(f"[clocks] undistort mapper: {clk.summary()} [{card}]")
+    if not exact:
+        fails.append("undistort: a card keyframe's full level differs from "
+                     "the CPU's")
+    for name, (steps, share) in worst.items():
+        if not (steps <= 1.001 and share < 5e-3):
+            fails.append(f"undistort: sub-level {name} {steps:.3g} steps "
+                         f"apart on {share:.3g} of the values")
+    if not mae_raw >= UNDISTORT_GAIN * mae_und:
+        fails.append(f"undistort: the keyframe is {mae_raw / mae_und:.2f}x "
+                     f"closer to the pinhole render, under {UNDISTORT_GAIN}")
+    if not INVALID_SHARE[0] <= invalid <= INVALID_SHARE[1]:
+        fails.append(f"undistort: invalid share {invalid:.4f} outside "
+                     f"{INVALID_SHARE}")
+    if not (n_bad > 0 and math.isclose(loss[1], loss[0], rel_tol=1e-6)):
+        fails.append(f"undistort: garbage in {n_bad} invalid pixels moved "
+                     f"the loss {loss[0]} -> {loss[1]}")
+    if not all(math.isfinite(x) for x in losses):
+        fails.append("undistort: loss not finite")
+    if not psnr >= psnr_init + 3.0:
+        fails.append(f"undistort: PSNR {psnr:.2f} not 3 dB above the "
+                     f"initial map's {psnr_init:.2f}")
+    for k, n in launches.items():
+        if n == 0:
+            fails.append(f"undistort: {k} launched no time")
+    return launches
+
+
+# [inertial]: frames stamped at EuRoC's 20 Hz camera rate with its 200 Hz
+# IMU stream, synthesised from the GT poses (slam/imu.imu_from_poses)
+CAMERA_HZ = 20.0
+IMU_HZ = 200.0
+# the gates of tests/test_tracking_imu.py:138-181: the mono-inertial
+# Umeyama scale and unaligned ATE; the blackout (frames 16-19 black) and
+# the dead-reckoned error bound
+IMU_SCALE = (0.8, 1.25)
+IMU_ATE_RAW = 0.45
+BLACKOUT = (16, 20)
+BLACKOUT_ERR = 0.3
+# (c): the shipped EuRoC stereo pair, a synthetic EuRoC layout of
+# [stereo]'s room at 752x480; the cuts of the mapper config, each for the
+# time limit (a 12-frame sequence gives a map from its 3rd keyframe on,
+# and the tail is 0.8 x the densification interval)
+EUROC_CAMERA = "camera/Stereo/euroc.yaml"
+EUROC_MAPPER = "gaussian_mapper/Stereo/euroc_stereo.yaml"
+EUROC_ROOM = dict(n_frames=12, width=752, height=480, n_gaussians=7000,
+                  seed=11, clutter_ratio=0.0, revolutions=0.15)
+EUROC_CUTS = {"Mapper.min_num_initial_map_kfs": 3,
+              "Optimization.densification_interval": 25}
+EUROC_ITERS_PER_FRAME = 3
+EUROC_T0_NS = 1403636579763555584
+
+
+def imu_stream(frames):
+    """The frames restamped at CAMERA_HZ, and the [K, 7] IMU rows between
+    each frame and the one before it (None for the first)."""
+    import dataclasses
+    from legslam_torch.slam.imu import imu_from_poses
+    times = np.arange(len(frames)) / CAMERA_HZ
+    blocks = imu_from_poses(times, np.stack([f.c2w for f in frames]),
+                            rate=IMU_HZ)
+    return ([dataclasses.replace(f, timestamp=float(t))
+             for f, t in zip(frames, times)], [None] + blocks)
+
+
+def mono_inertial_run(dev, card, fails, out_dir, frames, intr):
+    """[inertial] (a): [mono]'s room with its IMU stream through the
+    mono-inertial tracker (depth and pose hidden) and a monocular mapper
+    on the card."""
+    from legslam_torch.config import MapperParams, RasterizeConfig
+    from legslam_torch.eval_harness.metrics import ate_rmse
+    from legslam_torch.mapper.mapper import GaussianMapper
+    from legslam_torch.slam import tracking as T
+    frames, imu = imu_stream(frames)
+    kernels = path_kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    fe = T.TrackingFrontend(intr, sensor="mono-inertial", imu_init_kfs=6,
+                            kf_trans_th=0.05, kf_rot_deg_th=5.0, device=dev)
+    mapper = GaussianMapper(
+        fe.queue, intr, mp=MapperParams(min_num_initial_map_kfs=2),
+        cfg=RasterizeConfig(backend="cuda", mm_dtype="bfloat16"),
+        capacity=1 << 18, result_dir=out_dir, sensor_type="monocular",
+        device=dev)
+    ops = OpCounter(mapper)
+    emitted, push = [], fe.queue.push
+
+    def counted_push(op):
+        emitted.append(op.kind.name)
+        return push(op)
+    fe.queue.push = counted_push
+    track_ms = []
+    for f, rows in zip(frames, imu):
+        ta = time.perf_counter()
+        fe.track(hide_gt(f, depth=None), imu=rows)
+        track_ms.append((time.perf_counter() - ta) * 1e3)
+        mapper.drain_operations()
+        if mapper.state is None and mapper.has_met_initial_conditions():
+            mapper.initialize_map()
+        if mapper.state is not None:
+            for _ in range(3):
+                mapper.train_iteration()
+    sync(dev)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    fids, traj = fe.trajectory()
+    gt = np.stack([frames[int(i)].c2w for i in fids])[:, :3, 3]
+    sim3 = ate_rmse(traj[:, :3, 3], gt)
+    raw = ate_rmse(traj[:, :3, 3], gt, with_scale=False)["rmse"]
+    n_sr = emitted.count("SCALE_REFINEMENT")
+    applied = ops.kinds.get("SCALE_REFINEMENT", 0)
+    print(f"[inertial] (a) mono-inertial: {len(frames)} frames "
+          f"{intr['width']}x{intr['height']} at {CAMERA_HZ:g} Hz with "
+          f"{IMU_HZ:g} Hz IMU rows, depth and pose hidden: imu_ready "
+          f"{fe.imu_ready}, IMU inits {fe.n_imu_inits}, {fe.num_keyframes} "
+          f"keyframes, lost {fe.lost_frames}, SCALE_REFINEMENT emitted "
+          f"{n_sr} applied {applied}; Umeyama scale {sim3['scale']:.4f} "
+          f"(gate {IMU_SCALE}), ATE Sim(3) {sim3['rmse']:.4f} m, unaligned "
+          f"{raw:.4f} m (gate < {IMU_ATE_RAW}); tracker host ms a frame "
+          f"median {statistics.median(track_ms):.2f} p90 "
+          f"{pct(track_ms, 0.9):.2f}; monocular mapper {mapper.iteration} "
+          f"iterations, launches {launches} [{card}]")
+    if not (fe.imu_ready and fe.n_imu_inits >= 1):
+        fails.append(f"inertial (a): IMU not initialized (ready "
+                     f"{fe.imu_ready}, inits {fe.n_imu_inits})")
+    if n_sr < 1 or applied < 1:
+        fails.append(f"inertial (a): SCALE_REFINEMENT emitted {n_sr}, "
+                     f"applied {applied}")
+    if not IMU_SCALE[0] < sim3["scale"] < IMU_SCALE[1]:
+        fails.append(f"inertial (a): Umeyama scale {sim3['scale']:.4f} "
+                     f"outside {IMU_SCALE}")
+    if not raw < IMU_ATE_RAW:
+        fails.append(f"inertial (a): unaligned ATE {raw:.4f} >= "
+                     f"{IMU_ATE_RAW}")
+    return launches
+
+
+def blackout_run(dev, card, fails, out_dir, frames, intr):
+    """[inertial] (b): the same room through the rgbd-inertial tracker,
+    frames BLACKOUT black (depth kept, as in
+    tests/test_tracking_imu.py:155-181), and an RGB-D mapper on the card
+    that trains on through the blackout. The tracker's world is its first
+    camera's frame, the GT's the room's: the errors are taken after the
+    SE(3) Umeyama alignment of the tracked frames before the blackout to
+    the GT (JAX's test compares the two frames unaligned; those numbers
+    are printed beside)."""
+    from legslam_torch.config import MapperParams, RasterizeConfig
+    from legslam_torch.eval_harness.metrics import umeyama_alignment
+    from legslam_torch.mapper.mapper import GaussianMapper
+    from legslam_torch.slam import tracking as T
+    frames, imu = imu_stream(frames[:BLACKOUT[1]])
+    kernels = path_kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    fe = T.TrackingFrontend(intr, sensor="rgbd-inertial", imu_init_kfs=6,
+                            reloc_after=10 ** 9, kf_trans_th=0.05,
+                            kf_rot_deg_th=5.0, device=dev)
+    mapper = GaussianMapper(
+        fe.queue, intr, mp=MapperParams(min_num_initial_map_kfs=2),
+        cfg=RasterizeConfig(backend="cuda", mm_dtype="bfloat16"),
+        capacity=1 << 18, result_dir=out_dir, device=dev)
+    track_ms, dark_losses, dark_iters = [], [], 0
+    for k, (f, rows) in enumerate(zip(frames, imu)):
+        dark = k >= BLACKOUT[0]
+        if dark:
+            f = hide_gt(f, color=np.zeros_like(f.color))
+        ta = time.perf_counter()
+        fe.track(hide_gt(f), imu=rows)
+        track_ms.append((time.perf_counter() - ta) * 1e3)
+        mapper.drain_operations()
+        if mapper.state is None and mapper.has_met_initial_conditions():
+            mapper.initialize_map()
+        if mapper.state is not None:
+            for _ in range(3):
+                loss = mapper.train_iteration()
+                if dark:
+                    dark_iters += 1
+                    if loss is not None:
+                        dark_losses.append(loss)
+    sync(dev)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    lead = range(BLACKOUT[0])
+    gt = np.stack([f.c2w[:3, 3] for f in frames])
+    R, t, _ = umeyama_alignment(
+        np.stack([fe.poses[i][:3, 3] for i in lead]), gt[:BLACKOUT[0]],
+        with_scale=False)
+    last, frozen = fe.poses[BLACKOUT[1] - 1], fe.poses[BLACKOUT[0] - 1]
+    err = float(np.linalg.norm(R @ last[:3, 3] + t - gt[-1]))
+    err_frozen = float(np.linalg.norm(R @ frozen[:3, 3] + t - gt[-1]))
+    raw = [float(np.linalg.norm(p[:3, 3] - gt[-1])) for p in (last, frozen)]
+    print(f"[inertial] (b) rgbd-inertial through a blackout of frames "
+          f"{BLACKOUT[0]}-{BLACKOUT[1] - 1}: imu_ready {fe.imu_ready}, lost "
+          f"{fe.lost_frames}; frame {BLACKOUT[1] - 1}'s position error "
+          f"after aligning frames 0-{BLACKOUT[0] - 1}: dead-reckoned "
+          f"{err:.4f} m, frozen at frame {BLACKOUT[0] - 1} {err_frozen:.4f} "
+          f"m (gate < {BLACKOUT_ERR} and < frozen; unaligned, as JAX's "
+          f"test: {raw[0]:.4f} / {raw[1]:.4f}); tracker host ms a frame "
+          f"median {statistics.median(track_ms):.2f} p90 "
+          f"{pct(track_ms, 0.9):.2f}; RGB-D mapper {mapper.iteration} "
+          f"iterations, {dark_iters} in the blackout (losses "
+          f"{[round(x, 4) for x in dark_losses]}), launches {launches} "
+          f"[{card}]")
+    if fe.lost_frames < 3:
+        fails.append(f"inertial (b): lost {fe.lost_frames} frames < 3")
+    if not (err < BLACKOUT_ERR and err < err_frozen):
+        fails.append(f"inertial (b): dead-reckoned error {err:.4f} m, frozen"
+                     f" {err_frozen:.4f} m, bound {BLACKOUT_ERR}")
+    n_dark = 3 * (BLACKOUT[1] - BLACKOUT[0])
+    if dark_iters != n_dark or not all(math.isfinite(x)
+                                       for x in dark_losses):
+        fails.append(f"inertial (b): {dark_iters} iterations of {n_dark} in "
+                     f"the blackout, losses {dark_losses}")
+    return launches
+
+
+def write_png(path, rgb):
+    """An 8-bit RGB PNG of a float [H, W, 3] image in [0, 1] (stdlib zlib,
+    no image library needed to write it)."""
+    import struct
+    import zlib
+    img = (np.clip(rgb, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    h, w, _ = img.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           img.reshape(h, w * 3)], axis=1)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+    Path(path).write_bytes(
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+        + chunk(b"IEND", b""))
+
+
+def write_euroc(root, frames, rights, imu, intr, baseline) -> str:
+    """A EuRoC MAV ASL layout (mav0/{cam0,cam1,imu0,
+    state_groundtruth_estimate0}) of rectified pairs, modelled on
+    tests/util.py make_euroc_dir: cam0 is the body frame, cam1 sits
+    `baseline` along x, zero distortion; the IMU rows (imu_stream's, t in
+    s from the first frame) in ns from the first frame's stamp."""
+    from legslam_torch.utils.trajectory_io import _rot_to_quat
+    mav = Path(root) / "seq" / "mav0"
+    dt_ns = int(round(1e9 / CAMERA_HZ))
+    for ci, cam in enumerate(("cam0", "cam1")):
+        (mav / cam / "data").mkdir(parents=True)
+        lines = ["#timestamp [ns],filename"]
+        for i, img in enumerate(frames if ci == 0 else rights):
+            ts = EUROC_T0_NS + i * dt_ns
+            write_png(mav / cam / "data" / f"{ts}.png",
+                      img.color if ci == 0 else img)
+            lines.append(f"{ts},{ts}.png")
+        (mav / cam / "data.csv").write_text("\n".join(lines) + "\n")
+        off = baseline if ci else 0.0
+        (mav / cam / "sensor.yaml").write_text(
+            "sensor_type: camera\nT_BS:\n  rows: 4\n  cols: 4\n"
+            f"  data: [1,0,0,{off}, 0,1,0,0, 0,0,1,0, 0,0,0,1]\n"
+            f"resolution: [{intr['width']}, {intr['height']}]\n"
+            f"intrinsics: [{intr['fx']}, {intr['fy']}, {intr['cx']}, "
+            f"{intr['cy']}]\ndistortion_coefficients: [0.0, 0.0, 0.0, 0.0]\n")
+    gt = mav / "state_groundtruth_estimate0"
+    gt.mkdir(parents=True)
+    lines = ["#timestamp,px,py,pz,qw,qx,qy,qz"]
+    for i, f in enumerate(frames):
+        q = _rot_to_quat(f.c2w[:3, :3].astype(np.float64))
+        p = f.c2w[:3, 3]
+        lines.append(f"{EUROC_T0_NS + i * dt_ns},{p[0]},{p[1]},{p[2]},"
+                     f"{q[0]},{q[1]},{q[2]},{q[3]}")
+    (gt / "data.csv").write_text("\n".join(lines) + "\n")
+    (mav / "imu0").mkdir(parents=True)
+    rows = np.concatenate([imu[1]] + [b[1:] for b in imu[2:]])
+    lines = ["#timestamp [ns],w_x,w_y,w_z,a_x,a_y,a_z"] + [
+        f"{EUROC_T0_NS + int(round(r[0] * 1e9))}," + ",".join(
+            repr(float(x)) for x in r[1:]) for r in rows]
+    (mav / "imu0" / "data.csv").write_text("\n".join(lines) + "\n")
+    return str(mav.parent)
+
+
+def euroc_app_run(dev, card, fails, out_dir):
+    """[inertial] (c): apps/replica_rgbd.main with --frontend visual
+    --sensor auto on a synthetic EuRoC layout with imu0 (write_euroc) at
+    the pinhole K and baseline of the shipped EuRoC camera: the app sniffs
+    stereo-inertial, the tracker's SGM runs on the card, the mapper takes
+    the shipped EuRoC stereo config with EUROC_CUTS."""
+    from legslam_torch.apps import replica_rgbd
+    from legslam_torch.config import intrinsics_from_yaml, load_opencv_yaml
+    from legslam_torch.data.synthetic import SyntheticDataset
+    from legslam_torch.ops import stereo as S
+    from legslam_torch.slam import tracking as T
+    from legslam_torch.utils import ply
+    out = Path(out_dir)
+    cam = intrinsics_from_yaml(load_opencv_yaml(str(CFG_DIR / EUROC_CAMERA)))
+    pin = {k: cam[k] for k in ("width", "height", "fx", "fy", "cx", "cy")}
+    baseline = cam["stereo_baseline"]
+    t0 = time.perf_counter()
+    ds = SyntheticDataset(**EUROC_ROOM, device=dev)
+    ds.intrinsics = dict(pin)
+    frames, imu = imu_stream([ds.read(i) for i in range(len(ds))])
+    rights = [right_view(f.color, f.depth, pin["fx"], baseline)
+              for f in frames]
+    scene = write_euroc(out / "data", frames, rights, imu, pin, baseline)
+    cam_yaml = out / "euroc_pinhole.yaml"
+    cam_yaml.write_text(
+        "%YAML:1.0\n" + "".join(
+            f"Camera1.{k}: {pin[k]}\n" for k in ("fx", "fy", "cx", "cy"))
+        + f"Camera.width: {pin['width']}\nCamera.height: {pin['height']}\n"
+        "Stereo.T_c1_c2: !!opencv-matrix\n  rows: 4\n  cols: 4\n  dt: f\n"
+        f"  data: [1,0,0,{baseline}, 0,1,0,0, 0,0,1,0, 0,0,0,1]\n")
+    mapper_yaml = out / "euroc_stereo_cut.yaml"
+    mapper_yaml.write_text(
+        (CFG_DIR / EUROC_MAPPER).read_text() + "\n# cuts for the time limit\n"
+        + "".join(f"{k}: {v}\n" for k, v in EUROC_CUTS.items()))
+    write_s = time.perf_counter() - t0
+
+    fronts, calls, track_ms, sgm_devices = [], [], [], []
+    frontend_cls, sgm = T.TrackingFrontend, S.sgm_disparity
+
+    class Recording(frontend_cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            fronts.append(self)
+
+        def track(self, frame, **kw):
+            calls.append(kw)
+            ta = time.perf_counter()
+            try:
+                return super().track(frame, **kw)
+            finally:
+                track_ms.append((time.perf_counter() - ta) * 1e3)
+
+    def recorded_sgm(left, right, *a, **kw):
+        sgm_devices.append(left.device.type)
+        return sgm(left, right, *a, **kw)
+
+    kernels = path_kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    T.TrackingFrontend, S.sgm_disparity = Recording, recorded_sgm
+    t0 = time.perf_counter()
+    try:
+        replica_rgbd.main([
+            "--data", scene, "--out", str(out / "run"), "--cfg",
+            str(mapper_yaml), "--camera-cfg", str(cam_yaml), "--frontend",
+            "visual", "--sensor", "auto", "--no-lf", "--iters-per-frame",
+            str(EUROC_ITERS_PER_FRAME), "--device", dev.type])
+    finally:
+        T.TrackingFrontend, S.sgm_disparity = frontend_cls, sgm
+    run_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    (fe,) = fronts
+    imu_rows = [None if c.get("imu") is None else c["imu"].shape
+                for c in calls]
+    n_points = 0
+    ply_path = out / "run" / "experiment" / "ply" / "point_cloud" / \
+        "point_cloud.ply"
+    if ply_path.exists():
+        n_points = ply.load_gaussian_ply(str(ply_path))["xyz"].shape[0]
+    tum = out / "run" / "CameraTrajectory_TUM.txt"
+    ate = traj_ate(fe, frames)
+    print(f"[inertial] (c) replica_rgbd.main --frontend visual --sensor "
+          f"auto on a EuRoC layout (written in {write_s:.1f} s: "
+          f"{len(frames)} rectified pairs {pin['width']}x{pin['height']} at "
+          f"{CAMERA_HZ:g} Hz, fx {pin['fx']}, baseline {baseline:.6f} m from"
+          f" {EUROC_CAMERA}, {IMU_HZ:g} Hz imu0) with {EUROC_MAPPER} cut to "
+          f"{EUROC_CUTS}, {EUROC_ITERS_PER_FRAME} iterations a frame: sensor "
+          f"{fe.sensor} use_imu {fe.use_imu}, IMU rows a frame "
+          f"{[r[0] if r else None for r in imu_rows]}, SGM calls by device "
+          f"{({d: sgm_devices.count(d) for d in set(sgm_devices)})}, "
+          f"keyframes {fe.n_keyframes_created}, lost {fe.lost_frames}, ATE "
+          f"Sim(3) {ate[0]:.4f} m unaligned {ate[1]:.4f} m; tracker host ms "
+          f"a frame median {statistics.median(track_ms):.2f} p90 "
+          f"{pct(track_ms, 0.9):.2f}; PLY {n_points} points, TUM "
+          f"trajectory {tum.exists()}; launches {launches}; app "
+          f"{run_s:.1f} s [{card}]")
+    if not (fe.sensor == "stereo" and fe.use_imu):
+        fails.append(f"inertial (c): the app's frontend is {fe.sensor}, "
+                     f"use_imu {fe.use_imu}")
+    if len(calls) != len(frames) or not all(
+            r is not None and r[1] == 7 for r in imu_rows[1:]):
+        fails.append(f"inertial (c): IMU rows a frame {imu_rows}")
+    if not sgm_devices or any(d != dev.type for d in sgm_devices):
+        fails.append(f"inertial (c): SGM ran on {sgm_devices}")
+    if not n_points > 100:
+        fails.append(f"inertial (c): the PLY holds {n_points} points")
+    if not tum.exists():
+        fails.append("inertial (c): no CameraTrajectory_TUM.txt")
+    return launches
+
+
+def inertial_phase(dev, card, fails, out_dir):
+    """Phase 11 [inertial]: the three inertial sensor modes on the card, the
+    tracker on its native route: (a) mono_inertial_run and (b)
+    blackout_run on [mono]'s 640x480 room, (c) euroc_app_run through the
+    app. Gates: each run's own, and every kernel launched in each. Returns
+    the launches summed over the three runs."""
+    from legslam_torch.data.synthetic import SyntheticDataset
+    t0 = time.perf_counter()
+    ds = SyntheticDataset(**MONO_ROOM, device=dev)
+    frames = [ds.read(i) for i in range(len(ds))]
+    secs = {"render": time.perf_counter() - t0}
+    total = {}
+    for name, run in (
+            ("a", lambda o: mono_inertial_run(dev, card, fails, o, frames,
+                                              ds.intrinsics)),
+            ("b", lambda o: blackout_run(dev, card, fails, o, frames,
+                                         ds.intrinsics)),
+            ("c", lambda o: euroc_app_run(dev, card, fails, o))):
+        t0 = time.perf_counter()
+        launches = run(f"{out_dir}_{name}")
+        secs[name] = time.perf_counter() - t0
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+            if n == 0:
+                fails.append(f"inertial ({name}): {k} launched no time")
+    print(f"[inertial] seconds {({k: round(v, 1) for k, v in secs.items()})}"
+          f", launches over (a)-(c) {total} [{card}]")
+    return total
 
 
 def build_phase():
@@ -3243,6 +3889,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     loop_phase(dev, card, fails, str(out_dir) + "_loop")
     phase_s["phase10"] = time.perf_counter() - t_phase
+
+    # phase 11: the lens-distorted camera and the inertial sensor modes
+    t_phase = time.perf_counter()
+    undistort_launches = undistort_phase(dev, card, fails,
+                                         str(out_dir) + "_undistort")
+    torch.cuda.empty_cache()
+    phase_s["undistort"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    inertial_launches = inertial_phase(dev, card, fails,
+                                       str(out_dir) + "_inertial")
+    torch.cuda.empty_cache()
+    phase_s["inertial"] = time.perf_counter() - t_phase
     print(f"[phases] seconds {({k: round(v, 1) for k, v in phase_s.items()})}"
           f", total {sum(phase_s.values()):.1f} [{card}]")
 
@@ -3258,6 +3916,8 @@ def main() -> int:
                          query_launches=query_launches[name],
                          visual_launches=visual_launches[name],
                          ladder_launches=ladder_launches[name],
+                         undistort_launches=undistort_launches[name],
+                         inertial_launches=inertial_launches[name],
                          max_abs_err=errs[k],
                          ms=times[k], plain_ms=times[f"{k}_plain"],
                          bound_ms=b[k]["bound_ms"],
@@ -3276,6 +3936,8 @@ def main() -> int:
                          query_launches=query_launches[name],
                          visual_launches=visual_launches[name],
                          ladder_launches=ladder_launches[name],
+                         undistort_launches=undistort_launches[name],
+                         inertial_launches=inertial_launches[name],
                          max_abs_err=sort_errs[name], ms=sort_times[name],
                          plain_ms=sort_times[f"{name}_plain"],
                          bound_ms=sort_bnd[name]["bound_ms"],

@@ -84,10 +84,13 @@ def build_keyframe(packet: KeyframePacket, intr: dict,
     Pyramid levels: sub-level i has scale 2^-(num_sub_levels - i), i.e. for
     2 sub-levels: level 0 = quarter res, level 1 = half res, level 2
     (implicit) = full res (gaussian_mapper.cpp:454-491). Levels are resized
-    on the host, then uploaded compactly, as the JAX module does: color as
-    8-bit (the reference trains from 8-bit images), depth as u16
-    millimetres when it fits (0.5 mm quantisation), an all-ones mask made
-    on the device.
+    and quantised on the host, as the JAX module does: color to 8-bit (the
+    reference trains from 8-bit images), depth to u16 millimetres when it
+    fits (0.5 mm quantisation). The division back to float also runs on
+    the host (IEEE float32, as the CPU and JAX divide): CUDA divides by a
+    scalar through its reciprocal, an ulp away, so a keyframe built on the
+    card would not equal the CPU's. An all-ones mask is made on the
+    device.
     """
     h, w = packet.color.shape[:2]
     fx, fy = intr["fx"], intr["fy"]
@@ -114,13 +117,13 @@ def build_keyframe(packet: KeyframePacket, intr: dict,
             m = resize_linear(mask_full, lh, lw)
         cu8 = np.clip(np.asarray(c, np.float32) * 255.0 + 0.5,
                       0, 255).astype(np.uint8)
-        colors.append(torch.as_tensor(cu8, device=device).float() / 255.0)
+        colors.append(torch.as_tensor(
+            cu8.astype(np.float32) / np.float32(255.0), device=device))
         d = np.asarray(d, np.float32)
         if d.size and np.all(d >= 0) and np.all(d < 65.5):
-            # u16 bits travel as int16 (torch has few uint16 ops)
-            dq = (d * 1000.0 + 0.5).astype(np.uint16).view(np.int16)
-            dq = torch.as_tensor(dq, device=device).to(torch.int32) & 0xFFFF
-            depths.append(dq.float() / 1000.0)
+            dq = (d * 1000.0 + 0.5).astype(np.uint16)
+            depths.append(torch.as_tensor(
+                dq.astype(np.float32) / np.float32(1000.0), device=device))
         else:
             depths.append(torch.as_tensor(d, device=device))
         m = np.asarray(m, np.float32)

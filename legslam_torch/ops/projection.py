@@ -127,6 +127,22 @@ def _cov2d_cols(x, y, z, cov6, world_view, focal_x, focal_y,
     return c00, c01, c11
 
 
+def compute_cov2d(means3d: torch.Tensor, cov3d: torch.Tensor,
+                  world_view: torch.Tensor, focal_x: float, focal_y: float,
+                  tan_fovx: float, tan_fovy: float,
+                  valid: torch.Tensor | None = None) -> torch.Tensor:
+    """EWA splatting 2D covariance, packed [P, 3] = (xx, xy, yy), with the
+    view-space xy clamp and the +0.3 low-pass (forward.cu:74-112): the
+    formula of preprocess. `valid` marks the points whose view z may be
+    divided by (the others' lanes stay finite)."""
+    in_front = torch.ones(means3d.shape[0], dtype=torch.bool,
+                          device=means3d.device) if valid is None else valid
+    c00, c01, c11 = _cov2d_cols(
+        means3d[:, 0], means3d[:, 1], means3d[:, 2], cov3d.unbind(-1),
+        world_view, focal_x, focal_y, tan_fovx, tan_fovy, in_front)
+    return torch.stack([c00, c01, c11], -1)
+
+
 def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
                quats: torch.Tensor, valid: torch.Tensor,
                world_view: torch.Tensor, full_proj: torch.Tensor,

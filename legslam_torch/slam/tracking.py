@@ -74,6 +74,12 @@ def _use_native() -> bool:
 # ---------------------------------------------------------------------------
 
 def to_gray(color: np.ndarray) -> np.ndarray:
+    """uint8 gray image of a float [H, W, 3] (or [H, W]) frame in [0, 1].
+    Integer frames raise: the in-place steps below would wrap their sum
+    and cannot divide them in place."""
+    if not np.issubdtype(color.dtype, np.floating):
+        raise TypeError(f"to_gray takes a float32 frame in [0, 1], not "
+                        f"{color.dtype}")
     if color.ndim == 3:
         # ((c0+c1+c2))/3 — bit-identical to color.mean(-1) (same add
         # order) but 6x faster (no strided reduce machinery); in-place
@@ -193,9 +199,10 @@ def ransac_rigid(A: np.ndarray, B: np.ndarray, rng: np.random.Generator,
     # a python loop of tiny SVDs (~40 ms -> ~3 ms per call at the online
     # loop's ~200-point scale). Minimal-sample draw is fully vectorized
     # (iid triples with colliding rows marked degenerate — at n >= ~50
-    # a collision costs one of 64 hypotheses with probability < 0.4%,
-    # strictly cheaper than a python loop of rng.choice calls which
-    # dominated the call at the 600-track operating point).
+    # a triple collides with probability < 6%, which costs that one of
+    # the 192 hypotheses, strictly cheaper than a python loop of
+    # rng.choice calls which dominated the call at the 600-track
+    # operating point).
     idx = rng.integers(0, n, size=(iters, 3))
     distinct = (idx[:, 0] != idx[:, 1]) & (idx[:, 0] != idx[:, 2]) & \
         (idx[:, 1] != idx[:, 2])

@@ -49,3 +49,12 @@ def build_cov3d(scale: torch.Tensor, quat: torch.Tensor,
     return torch.stack(
         [sigma[..., 0, 0], sigma[..., 0, 1], sigma[..., 0, 2],
          sigma[..., 1, 1], sigma[..., 1, 2], sigma[..., 2, 2]], -1)
+
+
+def unpack_sym6(c: torch.Tensor) -> torch.Tensor:
+    """[..., 6] packed symmetric (xx, xy, xz, yy, yz, zz) -> [..., 3, 3]."""
+    xx, xy, xz, yy, yz, zz = c.unbind(-1)
+    return torch.stack(
+        [torch.stack([xx, xy, xz], -1),
+         torch.stack([xy, yy, yz], -1),
+         torch.stack([xz, yz, zz], -1)], -2)

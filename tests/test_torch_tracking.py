@@ -396,3 +396,31 @@ def test_native_route_raises_instead_of_falling_back(monkeypatch, gentle,
     gray = TT.to_gray(frames[0].color)
     with pytest.raises(RuntimeError, match="native tracking kernels"):
         TT.detect_corners(gray, 100)
+
+
+@pytest.mark.parametrize("shape", [(48, 64, 3), (48, 64)])
+def test_to_gray_matches_jax_on_float_frames(shape):
+    """Float frames (out of [0, 1] too, where the clip acts) give JAX's
+    uint8 gray bit for bit, in float32 and float64."""
+    from legslam_torch.slam import tracking as TT
+    from legslam_tpu.slam import tracking as JT
+    rng = np.random.default_rng(len(shape))
+    color = rng.uniform(-0.2, 1.2, size=shape)
+    for dtype in (np.float32, np.float64):
+        c = color.astype(dtype)
+        g = TT.to_gray(c)
+        assert g.dtype == np.uint8 and g.shape == shape[:2]
+        np.testing.assert_array_equal(g, JT.to_gray(c.copy()))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.int32])
+def test_to_gray_rejects_integer_frames(dtype):
+    """An integer frame raises a TypeError naming the float32 [0, 1] frame
+    it expects (JAX's in-place division raises a numpy casting error; its
+    uint8 sum would wrap first)."""
+    from legslam_torch.slam import tracking as TT
+    color = np.full((8, 8, 3), 200, dtype)
+    with pytest.raises(TypeError, match=r"float32 frame in \[0, 1\]"):
+        TT.to_gray(color)
+    with pytest.raises(TypeError, match=r"float32 frame in \[0, 1\]"):
+        TT.to_gray(color[..., 0])

@@ -6,7 +6,7 @@ route of tests/test_torch_tracking.py.
   tests/test_tracking_mono.py / test_tracking_imu.py (depth kept for the
   mono scale borrow, as test_mono_scale_refinement_emitted_and_metric
   does; hidden for mono-inertial), and rgbd-inertial through a blackout;
-* stereo: the 10-frame rectified-pair scene of
+* stereo and stereo-inertial: the 10-frame rectified-pair scene of
   tests/test_tracking_stereo.py, through each package's own SGM (the
   port's on the CPU).
 The operation streams agree as in test_torch_tracking.py: R, t within
@@ -119,6 +119,29 @@ def test_stereo_stream_matches(native_route, stereo_seq):
         kf_rot_deg_th=5.0)
     assert ft.n_keyframes_created >= 2
     assert any(p.color_right is not None for o in tops for p in o.keyframes)
+    assert_streams_equal(jops, tops)
+    assert_frontends_equal(fj, ft)
+
+
+def test_stereo_inertial_stream_matches(native_route, stereo_seq):
+    """sensor="stereo-inertial": SGM depth as above, with the IMU rows
+    between frames (legslam_torch.slam.imu.imu_from_poses of the GT
+    poses): the visual-inertial alignment initializes and the IMU
+    prediction seeds the pose solves."""
+    from legslam_torch.slam import imu as I
+    intr, frames, rights, baseline = stereo_seq
+    times = np.array([f.timestamp for f in frames])
+    blocks = I.imu_from_poses(times, np.stack([f.c2w for f in frames]),
+                              rate=100.0)
+    fj, jops, ft, tops = run_both(
+        native_route, intr, frames, changes=lambda i, f: dict(depth=None),
+        track_kw=lambda i: dict(color_right=rights[i],
+                                imu=blocks[i - 1] if i else None),
+        sensor="stereo-inertial", stereo_baseline=baseline, max_corners=300,
+        imu_init_kfs=3, kf_trans_th=0.05, kf_rot_deg_th=5.0)
+    assert ft.sensor == "stereo" and ft.use_imu
+    assert ft.imu_ready and ft.n_imu_inits >= 1
+    assert ft.n_keyframes_created >= 2
     assert_streams_equal(jops, tops)
     assert_frontends_equal(fj, ft)
 
