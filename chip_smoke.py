@@ -3,8 +3,9 @@
 online mapper, its language-feature encoder, its RGB-D system loop, its
 open-vocabulary query and serving stack, its visual tracking frontend
 (RGB-D, stereo with SGM, monocular, the inertial modes) with the live
-viewer, its bucketed, strip, multi-view and slab-skipped paths and its
-lens-distorted camera on one NVIDIA H100.
+viewer, its bucketed, strip, multi-view and slab-skipped paths, its
+lens-distorted camera, and its evaluation harnesses, offline trainer and
+detection CLI on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -125,7 +126,23 @@ Phases (each prints one or more lines; any failure exits non-zero):
      the app (apps/replica_rgbd.main --frontend visual --sensor auto) on
      a EuRoC layout with imu0 written at 752x480: stereo-inertial, SGM on
      the card, the shipped EuRoC stereo mapper config cut to the time;
- 12. a {"kernels": [...]} line, then the card line, then as the last line
+ 12. the evaluation and offline entry points (see evaluation_phase):
+     [eval] phase 5's room at the Replica camera written as a Replica
+     layout and scored by eval_harness/replica_eval.evaluate_scenes with
+     no cfg (the harness takes the "cuda" backend), the encoder on every
+     frame and LPIPS; each keyframe rendered on the kernels and on the
+     "torch" compositor in turn; [run_legs_slam] the server's POST
+     /run_legs_slam on that layout; [miou] the two-class scene of
+     tests/test_scannet_miou.py at 640x480 as a ScanNet layout through
+     scannet_eval.evaluate_scenes with no cfg, the confusion matrix on the
+     kernels against the "torch" compositor's, the comparison video;
+     [offline] apps/train_offline.main (1,400 iterations, one densify)
+     with its first step card against CPU and its checkpoint read back on
+     the CPU; [detect] apps/detect_objects.main on [eval]'s experiment,
+     the heats of every view on the kernels against the "torch"
+     compositor's;
+     [ae] models/autoencoder.train_autoencoder card against CPU;
+ 13. a {"kernels": [...]} line, then the card line, then as the last line
      {"ok": true, "device": {...}}.
 
 Each kernel's `launches` is its count over the path that runs it: the
@@ -135,7 +152,9 @@ counts their launches too); `query_launches` is its count over phase 7's
 pixel-space search, `visual_launches` over phase 8's [visual] system loop,
 `ladder_launches` over phase 10's [ladder] run, `undistort_launches`
 over phase 11's [undistort] run and `inertial_launches` over its three
-[inertial] runs together, and a compositing kernel's `bucketed_*` keys
+[inertial] runs together, `eval_launches` over phase 12's [eval],
+[run_legs_slam], [miou], [offline] and [detect] calls together (each
+part's own count is on its line), and a compositing kernel's `bucketed_*` keys
 are phase 9's [buckets] readings (its launches over the 8 bucketed
 steps).
 It needs a CUDA device and the repository beside it; without either it
@@ -3669,6 +3688,936 @@ def inertial_phase(dev, card, fails, out_dir):
     return total
 
 
+# --- phase 12: the evaluation and offline entry points -----------------------
+
+# phase 5's room rendered at the Replica camera the Replica reader assumes
+# (fx = fy = 600 at 1200x680, data/datasets.py REPLICA_INTRINSICS: the
+# layout carries no intrinsics), written as a Replica layout
+EVAL_ROOM = dict(MAPPER_ROOM)
+EVAL_SCENE = "room0"
+# tests/test_scannet_miou.py's two-class scene at ScanNet's 640x480
+# (bench.py's scannet unit), 20 frames, and that test's schedule
+MIOU_ROOM = dict(n_frames=20, width=640, height=480, n_gaussians=1500,
+                 seed=5, clutter_ratio=0.0)
+MIOU_SCENE = "scene0000_00"
+MIOU_OPT = dict(densify_from_iter=10, densification_interval=40,
+                opacity_reset_interval=0, iterations=400, lang_feature_lr=0.1)
+MIOU_MP = dict(min_num_initial_map_kfs=3, depth_cache=3)
+MIOU_ITERS_PER_FRAME = 10
+# two orthogonal unit class embeddings (tests/test_scannet_miou.py)
+CLASS_EMBS = np.eye(2, 64, dtype=np.float32)
+# the trainer's schedule, cut from 7,000 iterations (its default) for
+# time: densify_until_iter = 700, so one densify runs at iteration 600
+# (densify_from_iter 500, every 100), and the SH ramp reaches degree 1 at
+# 1000; 1,300 is the least count that still densifies once
+OFFLINE_ITERS = 1400
+OFFLINE_EVAL_EVERY = 700
+# the trainer's loss over its first and its last this many steps
+LOSS_WINDOW = 100
+RLS_MAX_FRAMES = 16
+# gates of phase 12 (stated before its first run on the card)
+EVAL_RTOL = 1e-3          # metrics of the kernels' renders vs the plain's
+EVAL_GAIN = 3.0           # dB of [eval]'s map over its initial map
+ATE_GT = 1e-6             # ate_rmse of the GT-pose frontend (rounding)
+TIE_COS = 1e-4            # a pixel's class decision within this is a tie
+# train_autoencoder card vs CPU, the parameters' max |err|: 40x the
+# f32-vs-f64 gap of the same training on the CPU (2.6e-8; 1.5e-8 between
+# CPU thread counts; tools/eval_cpu_figures.py ae)
+AE_ATOL = 1e-6
+AE_FRAMES = 4
+
+
+def write_rgbd(color_path, depth_path, frame, depth_scale):
+    """A frame's color as a quality-95 JPEG and its depth as a 16-bit PNG
+    of depth_scale steps a metre (clipped to the PNG's range), with cv2."""
+    import cv2
+    rgb = (np.clip(frame.color, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    depth = np.clip(np.rint(frame.depth * depth_scale), 0, 65535)
+    if not (cv2.imwrite(str(color_path), cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR),
+                        [cv2.IMWRITE_JPEG_QUALITY, 95]) and
+            cv2.imwrite(str(depth_path), depth.astype(np.uint16))):
+        raise RuntimeError(f"cv2 could not write {color_path} / "
+                           f"{depth_path}")
+
+
+def write_replica(scene_dir, frames) -> str:
+    """A Replica layout (examples/replica_rgbd.cpp:223-235) of `frames`:
+    results/frame%06d.jpg, results/depth%06d.png at the reader's 6553.5 a
+    metre (10 m at most) and traj.txt (one row-major camera-to-world a
+    line)."""
+    from legslam_torch.data.datasets import REPLICA_DEPTH_SCALE
+    res = Path(scene_dir) / "results"
+    res.mkdir(parents=True, exist_ok=True)
+    for f in frames:
+        write_rgbd(res / f"frame{f.index:06d}.jpg",
+                   res / f"depth{f.index:06d}.png", f, REPLICA_DEPTH_SCALE)
+    np.savetxt(str(Path(scene_dir) / "traj.txt"),
+               np.stack([f.c2w.reshape(-1) for f in frames]))
+    return str(scene_dir)
+
+
+def write_scannet(scene_dir, frames, intr) -> str:
+    """A ScanNet layout as tools/scannet_sens_reader.py exports it:
+    color/N.jpg, depth/N.png (millimetres), pose/N.txt (camera-to-world)
+    and intrinsic/intrinsic_color.txt (the 4x4 K of `intr`)."""
+    from legslam_torch.data.datasets import SCANNET_DEPTH_SCALE
+    root = Path(scene_dir)
+    for sub in ("color", "depth", "pose", "intrinsic"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    for f in frames:
+        write_rgbd(root / "color" / f"{f.index}.jpg",
+                   root / "depth" / f"{f.index}.png", f, SCANNET_DEPTH_SCALE)
+        np.savetxt(str(root / "pose" / f"{f.index}.txt"), f.c2w)
+    K = np.eye(4)
+    K[0, 0], K[1, 1], K[0, 2], K[1, 2] = (intr["fx"], intr["fy"], intr["cx"],
+                                          intr["cy"])
+    np.savetxt(str(root / "intrinsic" / "intrinsic_color.txt"), K)
+    return str(scene_dir)
+
+
+def eval_room(dev):
+    """Phase 5's room (its 200k gaussians and orbit) rendered on the card at
+    the Replica reader's camera: (frames, that camera, seconds)."""
+    from legslam_torch.data.datasets import REPLICA_INTRINSICS
+    from legslam_torch.data.synthetic import SyntheticDataset
+    t0 = time.perf_counter()
+    ds = SyntheticDataset(**EVAL_ROOM, device=dev)
+    # the reader's K for the frame size (ReplicaDataset: REPLICA_INTRINSICS
+    # itself at 1200x680)
+    w, h = EVAL_ROOM["width"], EVAL_ROOM["height"]
+    r = REPLICA_INTRINSICS
+    sx, sy = w / r["width"], h / r["height"]
+    ds.intrinsics = dict(width=w, height=h, fx=r["fx"] * sx, fy=r["fy"] * sy,
+                         cx=(r["cx"] + 0.5) * sx - 0.5,
+                         cy=(r["cy"] + 0.5) * sy - 0.5)
+    frames = [ds.read(i) for i in range(len(ds))]
+    sync(dev)
+    return frames, ds.intrinsics, time.perf_counter() - t0
+
+
+class Recorder:
+    """Records each GaussianMapper a harness builds, with a copy of its
+    store right after initialize_map: install() swaps the class the
+    harness module names for a recording subclass until restore()."""
+
+    def __init__(self, module):
+        self.module, self.mappers, self.init = module, [], []
+        self.cls = module.GaussianMapper
+
+    def install(self):
+        from legslam_torch.models import gaussians as G
+        rec = self
+
+        class Recording(self.cls):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                rec.mappers.append(self)
+
+            def initialize_map(self):
+                super().initialize_map()
+                rec.init.append(G.copy_state(self.state))
+        self.module.GaussianMapper = Recording
+        return self
+
+    def restore(self):
+        self.module.GaussianMapper = self.cls
+
+
+def count_launches(dev, fn):
+    """(fn(), {kernel: launches in the call}): the four counters are set to
+    0 just before it and read after a synchronise."""
+    kernels = path_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    sync(dev)
+    return out, {k: f.launches for k, f in kernels.items()}
+
+
+@torch.no_grad()
+def plain_render(mapper, kf):
+    """The keyframe rendered with LF from the mapper's store through
+    render_from_pose on the "torch" reference compositor with torch.sort,
+    capped at 2^16 pairs a tile (the kernels cap none), on the mapper's
+    device."""
+    import dataclasses
+    saved = mapper.cfg, mapper.max_per_tile
+    mapper.cfg = dataclasses.replace(saved[0], backend="torch",
+                                     cuda_sort=False)
+    mapper.max_per_tile = 1 << 16
+    try:
+        return kf_render(mapper, kf)
+    finally:
+        mapper.cfg, mapper.max_per_tile = saved
+
+
+@torch.no_grad()
+def kf_render(mapper, kf, include_lang_feat=True, state=None):
+    """The keyframe rendered as the harness renders it (render_from_pose
+    at full resolution, the mapper's cfg), from `state` if given."""
+    saved = mapper.state
+    mapper.state = saved if state is None else state
+    try:
+        v = kf.views[-1]
+        return mapper.render_from_pose(kf.R, kf.t, v.width, v.height,
+                                       include_lang_feat=include_lang_feat)
+    finally:
+        mapper.state = saved
+
+
+# a pair whose alpha sits at the 1/255 keep threshold within rounding is
+# composited by one render and dropped by the other: what lies behind it
+# moves by a factor 1 - 1/255
+KEEP_FLIP = (1.0 + 1e-3) / 255.0
+
+
+def render_acc(o) -> torch.Tensor:
+    """[H, W, 3 + C + 1] color, LF and depth of a RasterizeOutput."""
+    return torch.cat([o.color, o.lang_feat, o.depth[..., None]], -1)
+
+
+def renders_agree(a, b) -> tuple[bool, int, float, list]:
+    """Two renders of one store (the kernels' a, the plain compositor's b)
+    at the forward tolerance (fwd_outside on color, LF and depth, and
+    t_final), with check_kernels' exemption widened to the decisions both
+    compositors take at rounding boundaries: at most 1e-4 of the pixels
+    may be outside, each either ending with T <= 1e-2 in both (a
+    termination test within rounding of its threshold) or with t_final
+    apart by at most KEEP_FLIP of the larger (one pair at the alpha keep
+    threshold). Returns (ok, pixels outside, max |err| elsewhere, up to 4
+    outside pixels as (y, x, T_a, T_b, channel, a, b))."""
+    acc_a, acc_b = render_acc(a), render_acc(b)
+    bad = fwd_outside(acc_a, a.final_t, acc_b, b.final_t)
+    n_bad = int(bad.sum())
+    t_max = torch.maximum(a.final_t, b.final_t)
+    flip = (t_max <= 1e-2) | \
+        ((a.final_t - b.final_t).abs() <= KEEP_FLIP * t_max + 3e-5)
+    ok = n_bad <= 1e-4 * bad.numel() and bool(flip[bad].all())
+    good = ~bad
+    diff = (acc_a - acc_b).abs()
+    err = float(torch.maximum(diff.amax(-1), (a.final_t - b.final_t).abs())
+                [good].max()) if bool(good.any()) else 0.0
+    where = []
+    for y, x in bad.nonzero()[:4].tolist():
+        c = int(diff[y, x].argmax())
+        where.append((y, x, float(a.final_t[y, x]), float(b.final_t[y, x]),
+                      c, float(acc_a[y, x, c]), float(acc_b[y, x, c])))
+    return ok, n_bad, err, where
+
+
+def kf_metrics(out, kf, lp=None) -> dict:
+    """The Replica harness's per-keyframe metrics of one render
+    (eval_harness/replica_eval.run_scene)."""
+    from legslam_torch.eval_harness import metrics as M
+    from legslam_torch.ops import losses as L
+    pred, gt = out.color.clamp(0, 1), kf.gt_color[-1]
+    m = dict(psnr=float(L.psnr(pred, gt)), ssim=float(L.ssim(pred, gt)),
+             depth_l1_cm=M.depth_l1_cm(out.depth.cpu().numpy(),
+                                       kf.gt_depth[-1].cpu().numpy()))
+    if lp is not None:
+        from legslam_torch.models import lpips as LP
+        m["lpips"] = float(LP.lpips(lp, pred, gt))
+    return m
+
+
+def eval_phase(dev, card, fails, out_dir, frames, intr, enc):
+    """Phase 12 [eval]: the Replica harness as a user calls it.
+    EVAL_ROOM's 40 frames written as a Replica layout (write_replica), then
+    eval_harness/replica_eval.evaluate_scenes with NO cfg on "cuda": the
+    harness resolves the "cuda" backend with float32 pair features; a
+    keyframe every 4th frame, phase 6's seeded encoder on every frame, 7
+    iterations a frame with phase 5's schedule (the map starts at 4
+    keyframes, densify every 50 from 40), the tail, then each keyframe
+    scored (PSNR, SSIM, depth-L1, LPIPS(alex) with seeded weights) and the
+    experiment saved. Gates: the layout reads back with the camera `intr`
+    the frames were rendered at; the harness's mapper on "cuda"; every kernel
+    launched in the call; the log's psnr, ssim, lpips and depth_l1_cm
+    finite and ate_rmse within ATE_GT of 0; each keyframe rendered from the
+    trained store on the kernels and on the plain compositor in turn
+    (renders_agree), and the metrics from the two within EVAL_RTOL; the
+    mean keyframe PSNR EVAL_GAIN over the initial map's. Returns (launches,
+    the layout's root, the experiment's PLY directory)."""
+    from legslam_torch.config import MapperParams, OptimizationParams
+    from legslam_torch.data.datasets import open_dataset
+    from legslam_torch.eval_harness import replica_eval as RE
+    from legslam_torch.models import lpips as LP
+    t0 = time.perf_counter()
+    root = Path(out_dir) / "replica"
+    scene = write_replica(root / EVAL_SCENE, frames)
+    read_intr = open_dataset(scene).intrinsics
+    same_camera = read_intr.keys() == intr.keys() and all(
+        math.isclose(read_intr[k], intr[k], rel_tol=1e-9) for k in intr)
+    lpips_npz = Path(out_dir) / "lpips_alex.npz"
+    np.savez(lpips_npz, **LP.init_params(np.random.default_rng(0)))
+    write_s = time.perf_counter() - t0
+    rec = Recorder(RE).install()
+    try:
+        with ClockSampler() as clk:
+            results, launches = count_launches(dev, lambda: RE.evaluate_scenes(
+                str(root), str(Path(out_dir) / "eval"), scenes=(EVAL_SCENE,),
+                exp_name="chip", device=dev, kf_stride=4,
+                iterations_per_frame=SYSTEM_ITERS_PER_FRAME, encoder=enc,
+                lpips_weights=str(lpips_npz),
+                opt=OptimizationParams(densify_from_iter=40,
+                                       densification_interval=50),
+                mp=MapperParams(min_num_initial_map_kfs=4)))
+    finally:
+        rec.restore()
+    mapper, init = rec.mappers[0], rec.init[0]
+    log = [json.loads(x) for x in (Path(out_dir) / "eval" /
+                                   "eval_result_chip.log").read_text()
+           .splitlines()]
+    r = log[0]
+    lp = LP.load_params(str(lpips_npz), dev)
+    t0 = time.perf_counter()
+    agree, n_out, err, gaps, outside = [], 0, 0.0, {}, []
+    init_psnr = []
+    for fid, kf in sorted(mapper.keyframes.items()):
+        a = kf_render(mapper, kf)
+        b = plain_render(mapper, kf)
+        ok, n, e, where = renders_agree(a, b)
+        agree.append(ok)
+        n_out, err = n_out + n, max(err, e)
+        outside += [(fid, *(float(f"{v:.6g}") for v in w)) for w in where]
+        ma, mb = kf_metrics(a, kf, lp), kf_metrics(b, kf, lp)
+        for k in ma:
+            gaps[k] = max(gaps.get(k, 0.0),
+                          abs(ma[k] - mb[k]) / max(abs(mb[k]), 1e-12))
+        init_psnr.append(kf_metrics(kf_render(mapper, kf, False, init),
+                                    kf)["psnr"])
+    check_s = time.perf_counter() - t0
+    p_init = statistics.mean(init_psnr)
+    finite = all(math.isfinite(r.get(k, float("nan")))
+                 for k in ("psnr", "ssim", "lpips", "depth_l1_cm"))
+    print(f"[eval] replica_eval.evaluate_scenes on a Replica layout of "
+          f"{len(frames)} frames {EVAL_ROOM['width']}x{EVAL_ROOM['height']} "
+          f"(write {write_s:.1f} s), no cfg -> backend "
+          f"{mapper.cfg.backend} {mapper.cfg.mm_dtype}, encoder on every "
+          f"frame, {len(mapper.keyframes)} keyframes, {mapper.iteration} "
+          f"iterations, num_valid {r['n_gaussians']}: fps {r['fps']} "
+          f"total_time_s {r['total_time_s']}; psnr {r['psnr']:.4f} ssim "
+          f"{r['ssim']:.4f} lpips {r.get('lpips', float('nan')):.4f} "
+          f"depth_l1_cm {r['depth_l1_cm']:.4f} ate_rmse {r['ate_rmse']:.3g}"
+          f"; initial map PSNR {p_init:.4f}; launches {launches}; kernels "
+          f"vs plain compositor on every keyframe: {sum(agree)}/"
+          f"{len(agree)} agree, {n_out} pixels outside (keyframe, y, x, "
+          f"T kernels, T plain, worst channel, its values: {outside[:8]}),"
+          f" max|err| elsewhere {err:.3g}; metric gaps (relative) "
+          f"{ {k: float(f'{v:.3g}') for k, v in gaps.items()} } (gate "
+          f"{EVAL_RTOL}); checks {check_s:.1f} s [{card}]")
+    print(f"[clocks] eval harness: {clk.summary()} [{card}]")
+    if not same_camera:
+        fails.append(f"eval: the layout reads back with {read_intr}, not the "
+                     f"camera it was rendered at {intr}")
+    if mapper.cfg.backend != "cuda" or mapper.cfg.mm_dtype != "float32":
+        fails.append(f"eval: the harness's default cfg is {mapper.cfg}")
+    for k, v in launches.items():
+        if v == 0:
+            fails.append(f"eval: {k} launched no time")
+    if not finite or not abs(r["ate_rmse"]) <= ATE_GT:
+        fails.append(f"eval: log line {r}")
+    if not all(agree):
+        fails.append(f"eval: kernels vs plain compositor differ on "
+                     f"{len(agree) - sum(agree)} keyframes")
+    if not all(v <= EVAL_RTOL for v in gaps.values()):
+        fails.append(f"eval: metric gaps {gaps}")
+    if not r["psnr"] >= p_init + EVAL_GAIN:
+        fails.append(f"eval: PSNR {r['psnr']:.3f} not {EVAL_GAIN} dB over "
+                     f"the initial map's {p_init:.3f}")
+    return launches, str(root / EVAL_SCENE), results[0]["output"]
+
+
+def run_legs_slam_phase(dev, card, fails, scene, out_dir):
+    """Phase 12 [run_legs_slam]: POST /run_legs_slam on serving/api's stdlib
+    server (127.0.0.1, an ephemeral port) on the [eval] layout with
+    max_frames RLS_MAX_FRAMES: the handler runs run_scene at its defaults
+    (no cfg) on the state's device. Gates: status "completed", finite
+    metrics, the forward and backward kernels launched inside the request.
+    Returns the launches."""
+    import threading
+
+    from legslam_torch.serving import api
+    server = api.serve_stdlib(api.ServiceState(device=str(dev)),
+                              host="127.0.0.1", port=0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        (reply, ms), launches = count_launches(dev, lambda: _http(
+            url + "/run_legs_slam", {"dataset_path": scene,
+                                     "output_path": str(out_dir),
+                                     "max_frames": RLS_MAX_FRAMES}))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    m = reply.get("metrics", {})
+    finite = all(math.isfinite(m.get(k, float("nan")))
+                 for k in ("psnr", "ssim", "depth_l1_cm"))
+    shown = {k: m.get(k) for k in ("frames", "psnr", "ssim", "depth_l1_cm",
+                                   "n_gaussians", "fps")}
+    print(f"[run_legs_slam] POST /run_legs_slam (max_frames "
+          f"{RLS_MAX_FRAMES}) on serve_stdlib: status {reply.get('status')}"
+          f" in {ms:.1f} ms (host clock); metrics {shown}; launches "
+          f"{launches} [{card}]")
+    if reply.get("status") != "completed" or not finite:
+        fails.append(f"run_legs_slam: {reply}")
+    for k in ("composite_fwd", "composite_bwd"):
+        if launches[k] == 0:
+            fails.append(f"run_legs_slam: {k} launched no time")
+    return launches
+
+
+def miou_scene(dev, root):
+    """MIOU_ROOM with each gaussian's LF the class embedding of its world
+    x sign (tests/test_scannet_miou.py), rendered on the card and written as
+    a ScanNet layout; returns (scene dir, {fid: [37, 37, 64] unit LF
+    supervision}, {fid: [H, W] labels, 0 where the field covers under
+    half})."""
+    from legslam_torch.data.synthetic import SyntheticDataset
+    from legslam_torch.ops.rasterize import rasterize
+    from legslam_torch.utils.camera import CameraView
+    from legslam_torch.utils.sh import rgb_to_sh
+    ds = SyntheticDataset(**MIOU_ROOM, device=dev)
+    ds._lf = CLASS_EMBS[(ds._xyz[:, 0] > 0.0).astype(int)]
+    intr = ds.intrinsics
+    frames = [ds.read(i) for i in range(len(ds))]
+    n = ds._xyz.shape[0]
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    sh = torch.zeros(n, 16, 3, device=dev)
+    sh[:, 0] = rgb_to_sh(t(ds._colors))
+    lfs, labels = {}, {}
+    for f in frames:
+        w2c = np.linalg.inv(f.c2w)
+        view = CameraView.create(w2c[:3, :3], w2c[:3, 3], intr["width"],
+                                 intr["height"], fx=intr["fx"], fy=intr["fy"],
+                                 device=dev)
+        out = rasterize(t(ds._xyz), sh, t(ds._lf), t(ds._opacity),
+                        t(ds._scales), t(ds._quats),
+                        torch.ones(n, dtype=torch.bool, device=dev), view,
+                        torch.zeros(3, device=dev), 0, ds._cfg,
+                        include_lang_feat=True, max_per_tile=1024)
+        lf = out.lang_feat
+        hit = (1.0 - out.final_t > 0.5).cpu().numpy()
+        cls = np.where((lf[..., 0] > lf[..., 1]).cpu().numpy(), 1, 2)
+        labels[f.index] = np.where(hit, cls, 0).astype(np.int32)
+        unit = lf / torch.linalg.vector_norm(lf, dim=-1,
+                                             keepdim=True).clamp_min(1e-12)
+        lfs[f.index] = torch.nn.functional.interpolate(
+            unit.permute(2, 0, 1)[None], size=(37, 37), mode="bilinear",
+            align_corners=False)[0].permute(1, 2, 0).cpu().numpy()
+    return write_scannet(root / MIOU_SCENE, frames, intr), lfs, labels
+
+
+def decisions(lf):
+    """segment_prediction's labels of a [H, W, 64] LF render over
+    CLASS_EMBS at the reference's reject rule (score 0.7, i.e. cosine
+    -0.4), and the pixels whose decision is a tie within TIE_COS: the two
+    classes' cosines that close, or the better one that close to -0.4 (a
+    pixel the map leaves at LF 0 is rejected, not tied)."""
+    from legslam_torch.eval_harness import metrics as M
+    lf = lf.cpu().numpy()
+    norm = np.linalg.norm(lf, axis=-1, keepdims=True)
+    cos = lf / norm.clip(1e-12) @ CLASS_EMBS.T
+    tie = (norm[..., 0] > 0) & (
+        (np.abs(cos[..., 0] - cos[..., 1]) <= TIE_COS) |
+        (np.abs(cos.min(-1) + 0.4) <= TIE_COS))
+    return M.segment_prediction(lf, CLASS_EMBS, 0.7), tie
+
+
+def miou_phase(dev, card, fails, out_dir):
+    """Phase 12 [miou]: the ScanNet harness. miou_scene's layout through
+    eval_harness/scannet_eval.evaluate_scenes with NO cfg on "cuda" (the
+    harness resolves the "cuda" backend), text_embs CLASS_EMBS, the labels
+    through label_loader_factory and the LF supervision through lf_loader,
+    a keyframe every 4th frame, MIOU_ITERS_PER_FRAME iterations a frame with
+    tests/test_scannet_miou.py's schedule (MIOU_OPT, MIOU_MP), every
+    keyframe scored at the reference's reject rule (0.7). Gates: every
+    kernel launched; the confusion matrix from the kernels' LF renders
+    equals the plain compositor's over every pixel but the ties of
+    `decisions` in either render (their count printed); the trained map's
+    mIoU above the initial map's; create_comparison_video writes a
+    non-empty file. Returns the launches."""
+    from legslam_torch.config import MapperParams, OptimizationParams
+    from legslam_torch.eval_harness import metrics as M
+    from legslam_torch.eval_harness import replica_eval as RE
+    from legslam_torch.eval_harness import scannet_eval as SE
+    root = Path(out_dir) / "scannet"
+    t0 = time.perf_counter()
+    scene, lfs, labels = miou_scene(dev, root)
+    scene_s = time.perf_counter() - t0
+    rec = Recorder(RE).install()
+    try:
+        results, launches = count_launches(dev, lambda: SE.evaluate_scenes(
+            str(root), str(Path(out_dir) / "eval"), [MIOU_SCENE],
+            text_embs=CLASS_EMBS,
+            label_loader_factory=lambda s: (lambda fid: labels[fid]),
+            exp_name="chip", every_nth=1, device=dev, kf_stride=4,
+            iterations_per_frame=MIOU_ITERS_PER_FRAME,
+            lf_loader=lambda f: lfs[f.index],
+            opt=OptimizationParams(**MIOU_OPT), mp=MapperParams(**MIOU_MP)))
+    finally:
+        rec.restore()
+    mapper, init = rec.mappers[0], rec.init[0]
+    r = results[0]
+    conf_k = np.zeros((3, 3), np.int64)
+    conf_p = np.zeros((3, 3), np.int64)
+    n_tie = n_diff = 0
+    for fid, kf in sorted(mapper.keyframes.items()):
+        pk, tk = decisions(kf_render(mapper, kf).lang_feat)
+        pp, tp = decisions(plain_render(mapper, kf).lang_feat)
+        keep = ~(tk | tp)
+        n_tie += int((~keep).sum())
+        n_diff += int((pk != pp).sum())
+        gt = np.where(keep, labels[fid], 0)
+        conf_k += M.confusion_matrix(pk, gt, 3)
+        conf_p += M.confusion_matrix(pp, gt, 3)
+    st = mapper.state
+    mapper.state = init
+    try:
+        init_scores = SE.evaluate_segmentation(
+            mapper, CLASS_EMBS, lambda fid: labels[fid],
+            sorted(mapper.keyframes), 3, every_nth=1)
+    finally:
+        mapper.state = st
+    video = SE.create_comparison_video(
+        mapper, CLASS_EMBS, lambda fid: labels[fid],
+        sorted(mapper.keyframes), str(Path(out_dir) / "video"))
+    size = Path(video).stat().st_size if video else 0
+    print(f"[miou] scannet_eval.evaluate_scenes on a ScanNet layout of "
+          f"{MIOU_ROOM['n_frames']} frames {MIOU_ROOM['width']}x"
+          f"{MIOU_ROOM['height']} (two classes by world x; scene "
+          f"{scene_s:.1f} s), no cfg -> backend {mapper.cfg.backend}, "
+          f"{len(mapper.keyframes)} keyframes, {mapper.iteration} "
+          f"iterations: miou {r['miou']:.4f} macc {r['macc']:.4f} per-class "
+          f"IoU {[round(x, 4) for x in r['per_class_iou']]} (initial map "
+          f"miou {init_scores['miou']:.4f}), psnr {r['psnr']:.3f}; launches "
+          f"{launches}; confusion kernels == plain compositor off the ties: "
+          f"{bool(np.array_equal(conf_k, conf_p))} ({n_tie} tie pixels "
+          f"within {TIE_COS}, {n_diff} pixels decided differently); "
+          f"comparison video {size} bytes [{card}]")
+    for k, v in launches.items():
+        if v == 0:
+            fails.append(f"miou: {k} launched no time")
+    if not np.array_equal(conf_k, conf_p):
+        fails.append(f"miou: confusion {conf_k.tolist()} on the kernels vs "
+                     f"{conf_p.tolist()} on the plain compositor")
+    if not r["miou"] > init_scores["miou"]:
+        fails.append(f"miou: {r['miou']} not above the initial map's "
+                     f"{init_scores['miou']}")
+    if not size > 0:
+        fails.append("miou: no comparison video")
+    return launches
+
+
+# a train_step on the card against the same step on the CPU. The kernels
+# and their plain versions sum in other orders (the forward within atol
+# 3e-5 / rtol 1e-3, check_kernels), so the loss is held at the forward's
+# rtol, not step_ok's 1e-6 (which holds two runs of the same kernels); the
+# Adam moments and the densify statistics at STEP_RTOL, as step_ok holds
+# them; the parameters at STEP_ATOL wherever the first moment is above
+# the gradient tolerance, 2e-4 of its group's largest (check_kernels,
+# tests/test_pallas_grad.py): Adam's first step moves a parameter by
+# lr * sign(g), and below that tolerance the sign is rounding noise
+CROSS_LOSS_RTOL = 1e-3
+GRAD_FLOOR = 2e-4
+
+
+def cross_step(a, b, l_a, l_b) -> tuple[bool, dict]:
+    """(ok, errors) of store a (a step on the card, moved to the CPU)
+    against b (the same step on the CPU) and their losses: step_errs'
+    errors with 'params' over the elements whose gradient is above
+    GRAD_FLOOR, 'noise_flips' the elements below it that moved apart by
+    more than STEP_ATOL, and 'loss' relative."""
+    from legslam_torch.models import gaussians as G
+    errs = step_errs(a, b)
+    errs["params_all"], errs["params"], errs["noise_flips"] = \
+        errs["params"], 0.0, 0
+    for n in G.GROUPS:
+        m = getattr(b.adam_m, n).abs()
+        above = m > GRAD_FLOOR * float(m.max())
+        d = (getattr(a.params, n) - getattr(b.params, n)).abs()
+        if bool(above.any()):
+            errs["params"] = max(errs["params"], float(d[above].max()))
+        errs["noise_flips"] += int(((d > STEP_ATOL) & ~above).sum())
+    errs["loss"] = abs(l_a - l_b) / abs(l_b)
+    ok = errs["loss"] <= CROSS_LOSS_RTOL and \
+        errs["params"] <= STEP_ATOL and errs["adam_m"] <= STEP_RTOL and \
+        errs["grad_accum"] <= STEP_RTOL
+    return ok, errs
+
+
+class StepSpy:
+    """Wraps train_step for apps/train_offline.main: keeps copies of the
+    first call's arguments and result, and each call's host ms (with a
+    synchronise) and loss."""
+
+    def __init__(self, step, dev):
+        self.step, self.dev, self.first = step, dev, None
+        self.ms, self.losses = [], []
+
+    def __call__(self, state, *a, **k):
+        from legslam_torch.models import gaussians as G
+        seed = G.copy_state(state) if self.first is None else None
+        t0 = time.perf_counter()
+        out = self.step(state, *a, **k)
+        sync(self.dev)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.losses.append(float(out[1].loss))
+        self.last = (out[1], a, k)
+        if seed is not None:
+            self.first = (seed, a, k, G.copy_state(out[0]),
+                          self.losses[-1])
+            self.first_parts = loss_parts(*self.last)
+        return out
+
+
+def loss_parts(aux, a, k) -> tuple[float, float]:
+    """The color terms, (1 - l) L1 + l (1 - SSIM), and the depth L1 of a
+    train_step's loss (ops/losses.mapping_loss), from its render (aux) and
+    its targets (a: gt_color, gt_depth and mask at 5, 7 and 8)."""
+    from legslam_torch.ops import losses as L
+    lam, gt, gt_d, mask = k["opt"].lambda_dssim, a[5], a[7], a[8]
+    pc = aux.color * mask[..., None]
+    return (float((1 - lam) * L.l1_loss(pc, gt) +
+                  lam * (1 - L.ssim(pc, gt))),
+            float(L.l1_loss(aux.depth * mask, gt_d)))
+
+
+def to_cpu(x):
+    """A tensor, or a dataclass of them (GaussianState, its groups), on the
+    CPU; anything else as it is."""
+    import dataclasses
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: to_cpu(getattr(x, f.name))
+            for f in dataclasses.fields(x) if f.init})
+    return x
+
+
+@torch.no_grad()
+def seeded_test_psnr(scene, state, stride, hold, cfg, dev) -> float:
+    """Mean test-PSNR of `state` over apps/train_offline's held-out
+    keyframes (every `hold`-th of the frames at `stride`), as its
+    evaluate() renders them."""
+    from legslam_torch.data.datasets import open_dataset
+    from legslam_torch.mapper.keyframe import build_keyframe
+    from legslam_torch.ops import losses as L
+    from legslam_torch.ops.rasterize import rasterize
+    from legslam_torch.slam.interface import KeyframePacket
+    ds = open_dataset(scene)
+    out = []
+    for k, i in enumerate(range(0, len(ds), stride)):
+        if k % hold:
+            continue
+        f = ds.read(i)
+        w2c = np.linalg.inv(f.c2w).astype(np.float32)
+        kf = build_keyframe(KeyframePacket(
+            fid=i, timestamp=f.timestamp, R=w2c[:3, :3], t=w2c[:3, 3],
+            color=f.color, depth=f.depth, lf_image=None), ds.intrinsics, 0,
+            (), 0, 0, device=dev)
+        r = rasterize(state.params.xyz, state.sh(), state.params.lang_feat,
+                      state.opacities(), state.scales(), state.params.rotation,
+                      state.valid, kf.views[-1], torch.zeros(3, device=dev), 0,
+                      cfg, include_lang_feat=False)
+        out.append(float(L.psnr(r.color.clamp(0, 1), kf.gt_color[-1])))
+    return statistics.mean(out)
+
+
+def offline_phase(dev, card, fails, scene, out_dir):
+    """Phase 12 [offline]: apps/train_offline.main on the [eval] layout,
+    --iterations OFFLINE_ITERS --frame-stride 4 --eval-every
+    OFFLINE_EVAL_EVERY on "cuda", its seed cloud from the numpy keypoint
+    grid (trajectory._HAS_CV2 off for the run: cv2's corners in this fog
+    are ~100 a frame). Gates: the first train_step from the seeded store,
+    card against CPU on the same inputs, within cross_step; the gaussian
+    count changes at the densify; the median loss of the last LOSS_WINDOW
+    steps below that of the first (the test-PSNR is printed beside the
+    seeded store's, not gated: from this dense seed the reference's
+    schedule lowers the held-out views' PSNR, PERF.md §6); the
+    forward and backward kernels each launched
+    at least OFFLINE_ITERS times; checkpoint.npz loaded with
+    load_checkpoint(device="cpu") equals the card's final store bit for
+    bit. Returns the launches."""
+    import contextlib
+    import io
+    import re
+
+    from legslam_torch.apps import train_offline
+    from legslam_torch.config import RasterizeConfig
+    from legslam_torch.mapper import checkpoint as CK
+    from legslam_torch.mapper import train_step as TS
+    from legslam_torch.models import gaussians as G
+    from legslam_torch.slam import trajectory
+    spy = StepSpy(TS.train_step, dev)
+    densify, save = G.densify_and_prune, CK.save_checkpoint
+    densified, saved = [], []
+
+    def counted_densify(state, *a, **k):
+        n0 = int(state.num_valid())
+        out = densify(state, *a, **k)
+        densified.append((n0, int(out.num_valid())))
+        return out
+
+    def kept_save(path, state, meta=None):
+        saved.append((path, G.copy_state(state)))
+        return save(path, state, meta)
+    text = io.StringIO()
+    TS.train_step, G.densify_and_prune = spy, counted_densify
+    CK.save_checkpoint = kept_save
+    has_cv2, trajectory._HAS_CV2 = trajectory._HAS_CV2, False
+    try:
+        with ClockSampler() as clk, contextlib.redirect_stdout(text):
+            _, launches = count_launches(dev, lambda: train_offline.main([
+                "--data", scene, "--out", str(out_dir), "--iterations",
+                str(OFFLINE_ITERS), "--frame-stride", "4", "--eval-every",
+                str(OFFLINE_EVAL_EVERY), "--device", dev.type]))
+    finally:
+        TS.train_step, G.densify_and_prune = spy.step, densify
+        CK.save_checkpoint = save
+        trajectory._HAS_CV2 = has_cv2
+    log = text.getvalue()
+    psnrs = [float(x) for x in re.findall(r"test-PSNR=([-0-9.]+)", log)]
+    seed, a, k, card_st, card_loss = spy.first
+    t0 = time.perf_counter()
+    cpu_st, cpu_aux = spy.step(to_cpu(seed), *map(to_cpu, a),
+                               **{n: to_cpu(v) for n, v in k.items()})
+    cpu_s = time.perf_counter() - t0
+    step_good, errs = cross_step(to_cpu(card_st), cpu_st, card_loss,
+                                 float(cpu_aux.loss))
+    psnr_seed = seeded_test_psnr(scene, seed, 4, 8,
+                                 RasterizeConfig(backend="cuda"), dev)
+    path, final = saved[-1]
+    loaded, meta = CK.load_checkpoint(path, device="cpu")
+    same = all(torch.equal(x.cpu(), y) for x, y in
+               zip(G.state_tensors(final), G.state_tensors(loaded)))
+    ms = spy.ms
+    l_first = statistics.median(spy.losses[:LOSS_WINDOW])
+    l_last = statistics.median(spy.losses[-LOSS_WINDOW:])
+    parts = (spy.first_parts, loss_parts(*spy.last))
+    print(f"[offline] apps/train_offline.main --iterations {OFFLINE_ITERS} "
+          f"--frame-stride 4 --eval-every {OFFLINE_EVAL_EVERY} on the "
+          f"[eval] layout: seeded store {int(seed.num_valid())} gaussians "
+          f"(numpy keypoint grid), densify (before, after) {densified}, "
+          f"final {int(final.num_valid())}; test-PSNR "
+          f"{psnrs} (seeded store {psnr_seed:.4f}); median loss of the "
+          f"first / last {LOSS_WINDOW} steps {l_first:.5f} / {l_last:.5f} "
+          f"(color terms, depth L1 of the first and the last step "
+          f"{[tuple(round(x, 5) for x in p) for p in parts]}); "
+          f"ms a train_step "
+          f"median {statistics.median(ms):.2f} p90 {pct(ms, 0.9):.2f} (host "
+          f"clock, synchronised); launches {launches}; first step card vs "
+          f"CPU ({cpu_s:.1f} s on the host): loss {card_loss:.8f} / "
+          f"{float(cpu_aux.loss):.8f}, "
+          f"{errs_text(errs)} (cross_step {step_good}); checkpoint {meta} "
+          f"loads on the CPU equal bit for bit: {same} [{card}]")
+    print(f"[clocks] offline trainer: {clk.summary()} [{card}]")
+    if not step_good:
+        fails.append(f"offline: first step card vs CPU {errs_text(errs)}")
+    if not densified or densified[0][0] == densified[0][1]:
+        fails.append(f"offline: the densify left the count as it was "
+                     f"{densified}")
+    if len(psnrs) != OFFLINE_ITERS // OFFLINE_EVAL_EVERY or \
+            not all(math.isfinite(x) for x in psnrs):
+        fails.append(f"offline: test-PSNR lines {psnrs}")
+    if not l_last < l_first:
+        fails.append(f"offline: median loss {l_first} -> {l_last} did not "
+                     f"fall")
+    for k in ("composite_fwd", "composite_bwd"):
+        if launches[k] < OFFLINE_ITERS:
+            fails.append(f"offline: {k} launched {launches[k]} times in "
+                         f"{OFFLINE_ITERS} iterations")
+    if not same:
+        fails.append("offline: the checkpoint differs from the final store")
+    return launches
+
+
+def detect_phase(dev, card, fails, experiment, out_dir):
+    """Phase 12 [detect]: apps/detect_objects.main on [eval]'s saved
+    experiment (its PLY and the keyframes' cameras) with two seeded unit
+    --text-embs prompts, on "cuda". Gates: detections.json written, the
+    forward and both sort kernels launched; every camera rendered from the
+    PLY's store on the kernels and on the plain compositor (the "torch"
+    compositor with torch.sort on the card) in turn, the two agreeing
+    (renders_agree); and the heats of all the views, as
+    detect_objects_in_frames makes them from the kernels' renders, equal
+    within PAMR_ERR those made from the plain compositor's LF with the
+    kernels' RGB as PAMR's guide. The guide is shared because PAMR
+    divides each pixel's color differences by their spread over its
+    neighbours, which in a flat region is rounding noise: there two
+    renders whose colors differ by rounding give other affinities, and
+    the heats move by up to 1.35e-4 (tools/eval_cpu_figures.py pamr: a
+    flat wall on the CPU, where a shared guide leaves 3e-7). The heats
+    with each render's own guide are printed beside the gated ones. The pixels renders_agree lets through
+    (a pair at the alpha keep threshold or a termination test, decided
+    the other way) take the kernels' LF in the plain side too. Returns the
+    launches."""
+    import contextlib
+    import io
+
+    from legslam_torch.apps import detect_objects
+    from legslam_torch.apps.find_objects import (load_map, make_renderer,
+                                                 pamr_fn)
+    from legslam_torch.config import RasterizeConfig
+    from legslam_torch.eval_harness.detect_objects import (
+        detect_objects_in_frames)
+    rng = np.random.default_rng(0)
+    embs = rng.normal(size=(2, 64)).astype(np.float32)
+    embs /= np.linalg.norm(embs, axis=-1, keepdims=True)
+    npy = Path(out_dir) / "text_embs.npy"
+    npy.parent.mkdir(parents=True, exist_ok=True)
+    np.save(npy, embs)
+    prompts = ["a chair", "a table"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, launches = count_launches(dev, lambda: detect_objects.main([
+            "--scene", experiment, "--text-embs", str(npy), "--prompts",
+            *prompts, "--out", str(out_dir)], device=dev))
+    secs = time.perf_counter() - t0
+    found = json.loads((Path(out_dir) / "detections.json").read_text())
+    cams = json.loads((Path(experiment) / "cameras.json").read_text())
+    st, _ = load_map(str(Path(experiment) / "point_cloud" /
+                         "point_cloud.ply"), dev)
+    kern = make_renderer(st, None, 2048)
+    plain = make_renderer(st, RasterizeConfig(backend="torch",
+                                              cuda_sort=False), 1 << 16)
+    views = {"kernels": [], "plain": [], "shared": []}
+    agree, n_out = [], []
+    for cam in cams:
+        R = np.asarray(cam["rotation"], np.float32).T
+        t = -(R @ np.asarray(cam["position"], np.float32))
+        shot = (R, t, cam["width"], cam["height"], cam["fx"], cam["fy"])
+        a, b = kern(*shot), plain(*shot)
+        ok, n, _, _ = renders_agree(a, b)
+        agree.append(ok)
+        n_out.append(n)
+        bad = fwd_outside(render_acc(a), a.final_t, render_acc(b), b.final_t)
+        rgb = a.color.clamp(0, 1)
+        views["kernels"].append((rgb, a.lang_feat, a.depth))
+        views["plain"].append((b.color.clamp(0, 1), b.lang_feat, b.depth))
+        views["shared"].append((rgb, torch.where(bad[..., None], a.lang_feat,
+                                                 b.lang_feat), b.depth))
+    heats = {}
+    for k, v in views.items():
+        heats[k] = detect_objects_in_frames(
+            lambda *_, shots=iter(v): next(shots), cams, embs, prompts,
+            pamr_fn=pamr_fn).heats
+    del views
+    h_err = float(np.abs(heats["kernels"] - heats["shared"]).max())
+    raw = np.abs(heats["kernels"] - heats["plain"]).max(axis=(0, 2, 3))
+    print(f"[detect] apps/detect_objects.main on [eval]'s experiment "
+          f"({len(found['frames'])} cameras, prompts {prompts}): counts "
+          f"{found['counts']}, {secs:.1f} s; launches {launches}; every "
+          f"view rendered on the kernels and on the plain compositor: "
+          f"{sum(agree)}/{len(agree)} agree, pixels outside by view "
+          f"{n_out}; heats of all views, kernels vs plain compositor's "
+          f"LF (those pixels the kernels'), PAMR guided by the kernels' "
+          f"RGB, max|err| {h_err:.3g} (gate {PAMR_ERR}); each by its own "
+          f"RGB, max|err| by view "
+          f"{[float(f'{x:.3g}') for x in raw]} [{card}]")
+    for k in ("composite_fwd", "sort_keys", "sort_kv"):
+        if launches[k] == 0:
+            fails.append(f"detect: {k} launched no time")
+    if not all(agree):
+        fails.append(f"detect: kernels vs plain compositor differ on "
+                     f"{len(agree) - sum(agree)} views")
+    if not h_err <= PAMR_ERR:
+        fails.append(f"detect: heats differ by {h_err}")
+    return launches
+
+
+@torch.no_grad()
+def encoder_features(enc, frames) -> torch.Tensor:
+    """[B, 1369, 768] unit DINOv2 tokens of `frames` on the encoder's
+    device: models/encoder.encode up to the PCA."""
+    from legslam_torch.models import dinov2 as D
+    x = torch.as_tensor(np.stack([f.color for f in frames]),
+                        device=enc.device)
+    size = enc.cfg.image_size
+    x = torch.nn.functional.interpolate(
+        x.permute(0, 3, 1, 2), size=(size, size), mode="bilinear",
+        align_corners=False, antialias=True).permute(0, 2, 3, 1)
+    f = D.forward_cast(enc._cast_params, D.imagenet_normalize(x, *enc._norm),
+                       enc.cfg, enc.dtype)
+    return f / torch.linalg.vector_norm(f, dim=-1,
+                                        keepdim=True).clamp_min(1e-12)
+
+
+def ae_phase(dev, card, fails, frames, enc):
+    """Phase 12 [ae]: models/autoencoder.train_autoencoder (768 -> 64 ->
+    768, Adam, 5 epochs) on the card and on the CPU from the same init
+    draws (a CPU generator, seed 0), on phase 6's encoder features of
+    AE_FRAMES frames. Gates: the parameters agree within AE_ATOL; the
+    reconstruction loss falls."""
+    from legslam_torch.models import autoencoder as AE
+    feats = encoder_features(enc, frames[:AE_FRAMES])
+    batches = list(feats.cpu().numpy())
+    d = feats.shape[-1]
+    card_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        card_p = AE.train_autoencoder(
+            batches, torch.Generator().manual_seed(0), d=d, device=dev)
+        sync(dev)
+        card_s.append(time.perf_counter() - t0)
+    cpu_p = AE.train_autoencoder(batches, torch.Generator().manual_seed(0),
+                                 d=d, device="cpu")
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(card_p, cpu_p))
+    init = AE.init(torch.Generator().manual_seed(0), d=d, device=dev)
+
+    def loss(p):
+        return float(torch.mean((AE.decode(p, AE.encode(p, feats)) - feats)
+                                ** 2))
+    l0, l1 = loss(init), loss(card_p)
+    print(f"[ae] train_autoencoder on {AE_FRAMES} frames' encoder features "
+          f"{tuple(feats.shape)}, {5 * AE_FRAMES} Adam steps: card vs CPU "
+          f"parameters max|err| {err:.3g} (gate {AE_ATOL}); loss {l0:.6g} -> "
+          f"{l1:.6g}; on the card {card_s[0]:.2f} s the first call, "
+          f"{card_s[1]:.2f} s the second (host clock) [{card}]")
+    if not err <= AE_ATOL:
+        fails.append(f"ae: card vs CPU parameters differ by {err}")
+    if not l1 < l0:
+        fails.append(f"ae: loss {l0} -> {l1} did not fall")
+
+
+def evaluation_phase(dev, card, fails, out_dir, enc):
+    """Phase 12: the evaluation and offline entry points on the card (see
+    eval_phase, run_legs_slam_phase, miou_phase, offline_phase,
+    detect_phase, ae_phase). Returns each kernel's launches summed over the
+    parts that run the kernels, and the seconds of each part."""
+    out = Path(out_dir)
+    secs = {}
+    frames, intr, secs["render"] = eval_room(dev)
+    parts = {}
+    t0 = time.perf_counter()
+    parts["eval"], scene, experiment = eval_phase(
+        dev, card, fails, out / "eval", frames, intr, enc)
+    secs["eval"] = time.perf_counter() - t0
+    for name, run in (
+            ("run_legs_slam", lambda: run_legs_slam_phase(
+                dev, card, fails, scene, out / "run_legs_slam")),
+            ("miou", lambda: miou_phase(dev, card, fails, out / "miou")),
+            ("offline", lambda: offline_phase(dev, card, fails, scene,
+                                              out / "offline")),
+            ("detect", lambda: detect_phase(dev, card, fails, experiment,
+                                            out / "detect"))):
+        t0 = time.perf_counter()
+        parts[name] = run()
+        secs[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ae_phase(dev, card, fails, frames, enc)
+    secs["ae"] = time.perf_counter() - t0
+    total = {k: sum(p[k] for p in parts.values()) for k in parts["eval"]}
+    print(f"[evaluation] seconds {({k: round(v, 1) for k, v in secs.items()})}"
+          f"; launches by part {parts} [{card}]")
+    return total
+
+
 def build_phase():
     from legslam_torch import _build
     names = ("composite_fwd", "composite_bwd", "sort")
@@ -3852,7 +4801,6 @@ def main() -> int:
     t_phase = time.perf_counter()
     fe, vis_mapper, visual_launches = visual_phase(
         dev, card, fails, str(out_dir) + "_visual", enc)
-    del enc
     phase_s["visual"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     viewer_phase(dev, card, fails, fe, vis_mapper)
@@ -3901,6 +4849,15 @@ def main() -> int:
                                        str(out_dir) + "_inertial")
     torch.cuda.empty_cache()
     phase_s["inertial"] = time.perf_counter() - t_phase
+
+    # phase 12: the evaluation harnesses, /run_legs_slam, the offline
+    # trainer, the detection CLI and the autoencoder
+    t_phase = time.perf_counter()
+    eval_launches = evaluation_phase(dev, card, fails,
+                                     str(out_dir) + "_evaluation", enc)
+    del enc
+    torch.cuda.empty_cache()
+    phase_s["evaluation"] = time.perf_counter() - t_phase
     print(f"[phases] seconds {({k: round(v, 1) for k, v in phase_s.items()})}"
           f", total {sum(phase_s.values()):.1f} [{card}]")
 
@@ -3918,6 +4875,7 @@ def main() -> int:
                          ladder_launches=ladder_launches[name],
                          undistort_launches=undistort_launches[name],
                          inertial_launches=inertial_launches[name],
+                         eval_launches=eval_launches[name],
                          max_abs_err=errs[k],
                          ms=times[k], plain_ms=times[f"{k}_plain"],
                          bound_ms=b[k]["bound_ms"],
@@ -3938,6 +4896,7 @@ def main() -> int:
                          ladder_launches=ladder_launches[name],
                          undistort_launches=undistort_launches[name],
                          inertial_launches=inertial_launches[name],
+                         eval_launches=eval_launches[name],
                          max_abs_err=sort_errs[name], ms=sort_times[name],
                          plain_ms=sort_times[f"{name}_plain"],
                          bound_ms=sort_bnd[name]["bound_ms"],

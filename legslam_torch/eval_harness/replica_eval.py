@@ -57,8 +57,13 @@ def run_scene(scene_dir: str, out_dir: str,
     construction); "visual" runs the tracking frontend (its stereo SGM on
     `device`) with GT poses hidden, so ate_rmse measures real tracking
     drift. LF images come from `encoder` (on its device) or else
-    `lf_loader(frame)`.
+    `lf_loader(frame)`. Without `cfg` the mapper trains and renders on the
+    "cuda" backend with float32 pair features: the kernels on a card,
+    their plain versions on CPU tensors (JAX's harness renders with its
+    XLA reference compositor).
     """
+    if cfg is None:
+        cfg = RasterizeConfig(backend="cuda", mm_dtype="float32")
     ds = open_dataset(scene_dir)
     if frontend == "visual":
         fe = TrackingFrontend(ds.intrinsics, **{"device": device,

@@ -91,6 +91,16 @@ def rotation_angle_deg(R: np.ndarray) -> float:
 
 
 class GaussianMapper:
+    """The online mapper over the keyframe operations `source` yields.
+
+    `cfg` defaults to RasterizeConfig(), whose backend is the "torch"
+    reference compositor (as the JAX package's default is its XLA
+    reference): a caller on a card passes a cfg with backend="cuda" to
+    train and render through the compositing and sort kernels, as the
+    app, the harnesses (eval_harness/replica_eval.run_scene) and
+    chip_smoke.py do.
+    """
+
     def __init__(self, source, intrinsics: dict,
                  opt: Optional[OptimizationParams] = None,
                  mp: Optional[MapperParams] = None,
