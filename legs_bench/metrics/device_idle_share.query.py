@@ -1,0 +1,10 @@
+"""Share of the traced query window in which no operation ran on the
+device: 100 x (1 - busy / window), busy being the union of the device's
+operation intervals in torch.profiler's trace. Moves query_ms_p95."""
+
+
+def read(data):
+    if data.get("kind") != "query" or data["device"]["window_s"] <= 0:
+        return None
+    dev = data["device"]
+    return 100.0 * (1.0 - dev["busy_s"] / dev["window_s"])
