@@ -10,7 +10,7 @@ output lines:
       [--kf-stride 8] [--max-frames N] [--capacity 262144] [--no-lf] \
       [--encoder-weights <dir with dinov2.npz + pca.npz>] \
       [--frontend trajectory|visual] [--sensor auto|rgbd|mono|stereo|...] \
-      [--device cuda|cpu]
+      [--profile-dir DIR] [--device cuda|cpu]
 
 Prints per-run "Average FPS" and "Total time" lines like the reference
 (examples/replica_rgbd.cpp:196-199) and writes the experiment/ply artifact
@@ -25,6 +25,13 @@ keep them there.
 stereo SGM runs on `--device`. The JAX app's persistent XLA compilation
 cache has no counterpart: PyTorch runs eagerly and the kernels are built
 once into build/legslam_torch/.
+
+`--profile-dir DIR` traces the feed loop with torch.profiler and turns the
+program's spans on (utils/runtime.py): DIR/trace.json holds the CPU and
+CUDA events and, as a process of its own above them on the same clock,
+"legslam_torch spans": each frame, the encoder, tracking, the drain and
+ingest, each mapping iteration with its binning-cache fills and the
+step's render, loss, backward and Adam. Open it in Perfetto.
 """
 from __future__ import annotations
 
@@ -35,6 +42,8 @@ import time
 
 import numpy as np
 import torch
+
+from legslam_torch.utils import runtime
 
 
 def process_frame(frame, frontend, mapper, encoder=None, lf_image=None,
@@ -48,20 +57,22 @@ def process_frame(frame, frontend, mapper, encoder=None, lf_image=None,
     previous frame. Returns the LF image handed to the frontend; the
     encoder's stays on its device, and the keyframe keeps that tensor."""
     from legslam_torch.slam.tracking import TrackingFrontend
-    if encoder is not None:
-        lf_image = encoder.create_language_features(frame.color)
-    if isinstance(frontend, TrackingFrontend):
-        frontend.track(frame, lf_image=lf_image,
-                       color_right=getattr(frame, "color_right", None),
-                       imu=imu)
-    else:
-        frontend.track(frame, lf_image=lf_image)
-    mapper.drain_operations()
-    if mapper.state is None and mapper.has_met_initial_conditions():
-        mapper.initialize_map()
-    if mapper.state is not None:
-        for _ in range(iters_per_frame):
-            mapper.train_iteration()
+    with runtime.span("frame", frame=frame.index) as sp:
+        if encoder is not None:
+            lf_image = encoder.create_language_features(frame.color)
+        if isinstance(frontend, TrackingFrontend):
+            packet = frontend.track(
+                frame, lf_image=lf_image,
+                color_right=getattr(frame, "color_right", None), imu=imu)
+        else:
+            packet = frontend.track(frame, lf_image=lf_image)
+        sp.set(keyframe=packet is not None)
+        mapper.drain_operations()
+        if mapper.state is None and mapper.has_met_initial_conditions():
+            mapper.initialize_map()
+        if mapper.state is not None:
+            for _ in range(iters_per_frame):
+                mapper.train_iteration()
     return lf_image
 
 
@@ -138,7 +149,7 @@ def main(argv=None):
                         help="per-view binning cache interval (1 = exact)")
     parser.add_argument("--profile-dir", default=None,
                         help="write a torch.profiler trace of the mapping "
-                             "loop to this dir")
+                             "loop, with the program's spans, to this dir")
     parser.add_argument("--device", default="cuda",
                         help="torch device of the map and the step")
     args = parser.parse_args(argv)

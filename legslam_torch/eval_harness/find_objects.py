@@ -24,6 +24,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from legslam_torch.utils import runtime
+
 PIXEL_MASK_THRESHOLD = 0.5     # eval/find_objects.py:310
 BOX_FILTER = 30                # 30x30 smoothing (find_bboxes)
 GAUSSIAN_SIM_THRESHOLD = 0.94  # eval/render_object.py:55
@@ -315,23 +317,26 @@ def find_objects_in_gaussians(xyz: np.ndarray, lang_feat: np.ndarray,
     """Gaussian-space object finding (eval/find_objects_gaussians.py):
     inverted per-gaussian similarity > threshold -> DBSCAN clusters ->
     centers."""
-    heat = inverted_similarity(lang_feat, text_emb[None])[0]
-    sel = heat > sim_threshold
-    if sel.sum() < min_samples:
-        return []
-    pts = xyz[sel]
-    scores = heat[sel]
-    try:
-        from sklearn.cluster import DBSCAN
-        labels = DBSCAN(eps=eps, min_samples=min_samples).fit(pts).labels_
-    except ImportError:  # pragma: no cover
-        labels = np.zeros(len(pts), np.int64)
-    out = []
-    for lbl in sorted(set(labels) - {-1}):
-        m = labels == lbl
-        out.append(ObjectDetection(
-            center=pts[m].mean(0), n_gaussians=int(m.sum()),
-            score=float(scores[m].mean())))
+    with runtime.span("search.similarity"):
+        heat = inverted_similarity(lang_feat, text_emb[None])[0]
+        sel = heat > sim_threshold
+        if sel.sum() < min_samples:
+            return []
+        pts = xyz[sel]
+        scores = heat[sel]
+    with runtime.span("search.cluster"):
+        try:
+            from sklearn.cluster import DBSCAN
+            labels = DBSCAN(eps=eps,
+                            min_samples=min_samples).fit(pts).labels_
+        except ImportError:  # pragma: no cover
+            labels = np.zeros(len(pts), np.int64)
+        out = []
+        for lbl in sorted(set(labels) - {-1}):
+            m = labels == lbl
+            out.append(ObjectDetection(
+                center=pts[m].mean(0), n_gaussians=int(m.sum()),
+                score=float(scores[m].mean())))
     out.sort(key=lambda d: -d.n_gaussians)
     return out
 

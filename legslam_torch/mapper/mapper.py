@@ -53,7 +53,7 @@ from legslam_torch.ops import losses
 from legslam_torch.ops.binning import trim_binning
 from legslam_torch.ops.rasterize import compute_binning, rasterize
 from legslam_torch.slam.interface import MappingOperation, OpKind
-from legslam_torch.utils import ply
+from legslam_torch.utils import ply, runtime
 from legslam_torch.utils.camera import CameraView
 from legslam_torch.utils.undistort import build_undistortion
 
@@ -188,7 +188,6 @@ class GaussianMapper:
         # keyframe RGB/depth are remapped and the mask gates the loss
         # (gaussian_mapper.cpp:399-432, 711-721).
         self.undistortion = build_undistortion(intrinsics)
-        self.timings: list[float] = []
         self.big_points_on = False
         self.loss_sync_interval = 10
         self._last_aux = None
@@ -301,6 +300,7 @@ class GaussianMapper:
     # ------------------------------------------------------------------
     # Bridge ingestion (combineMappingOperations, gaussian_mapper.cpp:829)
     # ------------------------------------------------------------------
+    @runtime.spanned("ingest.keyframe")
     def _ingest_keyframe(self, packet) -> None:
         mp = self.mp
         if packet.fid in self.keyframes:
@@ -433,6 +433,7 @@ class GaussianMapper:
         world = (pts[ok] - kf.t) @ kf.R
         return world, cols[ok], pts[ok, 2]
 
+    @runtime.spanned("ingest.points")
     def _increase_points(self, pts: np.ndarray, cols: np.ndarray,
                          smax: np.ndarray | None = None) -> None:
         """Ingest new points padded to a power-of-two bucket, the tail
@@ -480,6 +481,7 @@ class GaussianMapper:
         zc = np.maximum(np.asarray(z, np.float32), 1e-3)
         return np.log((px / 3.0) * zc / self.intr["fx"]).astype(np.float32)
 
+    @runtime.spanned("ingest.flush")
     def _flush_depth_cache(self) -> None:
         if not self._depth_cache or self.state is None:
             self._kfs_since_densify_flush = 0
@@ -596,6 +598,7 @@ class GaussianMapper:
         return (len(self.keyframes) >= self.mp.min_num_initial_map_kfs or
                 (self.source.is_shutdown() and len(self.keyframes) > 0))
 
+    @runtime.spanned("map.init")
     def initialize_map(self) -> None:
         pts = [p for p, _ in self._pending_points]
         cols = [c for _, c in self._pending_points]
@@ -620,6 +623,7 @@ class GaussianMapper:
         self.scene_translate, self.cameras_extent = nerfpp_norm(
             np.asarray(centers, np.float32))
 
+    @runtime.spanned("drain")
     def drain_operations(self, limit: int = 32) -> None:
         for _ in range(limit):
             op = self.source.pop_operation()
@@ -707,7 +711,8 @@ class GaussianMapper:
 
         def compute():
             self.fresh_binnings += 1
-            return self.binning_for(view, self.cfg)
+            with runtime.span("map.binning"):
+                return self.binning_for(view, self.cfg)
 
         return self._cached((kf.fid, lvl), compute)
 
@@ -723,15 +728,16 @@ class GaussianMapper:
         def compute():
             self.fresh_binnings += 1
             st = self.state
-            return spatial.spatial_compute_binning(
-                st.params.xyz, torch.exp(st.params.scaling),
-                st.params.rotation, st.valid, view.world_view,
-                view.full_proj, view.tan_fovx, view.tan_fovy, mine,
-                width=view.width, height=view.height,
-                h_local=layout.h_local, cfg=self.cfg,
-                max_per_tile=self.max_per_tile,
-                opacity=torch.sigmoid(st.params.opacity[:, 0]),
-                watermark_hint=self._watermark())
+            with runtime.span("map.binning"):
+                return spatial.spatial_compute_binning(
+                    st.params.xyz, torch.exp(st.params.scaling),
+                    st.params.rotation, st.valid, view.world_view,
+                    view.full_proj, view.tan_fovx, view.tan_fovy, mine,
+                    width=view.width, height=view.height,
+                    h_local=layout.h_local, cfg=self.cfg,
+                    max_per_tile=self.max_per_tile,
+                    opacity=torch.sigmoid(st.params.opacity[:, 0]),
+                    watermark_hint=self._watermark())
 
         return self._cached((kf.fid, lvl, "spatial"), compute)
 
@@ -774,11 +780,17 @@ class GaussianMapper:
             watermark_hint=self._watermark())
 
     def train_iteration(self) -> Optional[float]:
-        """One trainForOneIteration (gaussian_mapper.cpp:624-798)."""
+        """One trainForOneIteration (gaussian_mapper.cpp:624-798): a tick
+        of n_views keyframes, else one keyframe's step (whole or in
+        strips); a "map_iter" span on every path."""
         if self.state is None:
             return None
-        if self.n_views > 1:
-            return self._train_iteration_batched()
+        with runtime.span("map_iter") as sp:
+            if self.n_views > 1:
+                return self._train_iteration_batched()
+            return self._train_iteration_one(sp)
+
+    def _train_iteration_one(self, sp) -> Optional[float]:
         kf = self._pick_keyframe()
         if kf is None:
             return None
@@ -790,6 +802,7 @@ class GaussianMapper:
             self.active_sh_degree += 1
 
         lvl = min(kf.pick_pyramid_level(), len(kf.views) - 1)
+        sp.set(iteration=self.iteration, keyframe=kf.fid, level=lvl)
         view = kf.views[lvl]
         include_lf = self.include_lang_feat and kf.gt_lf is not None
         # the raw LF grid; train_step upsamples it to the level
@@ -802,10 +815,9 @@ class GaussianMapper:
             if include_lf:  # the strips crop rows: full-resolution LF
                 from legslam_torch.mapper.train_step import upsample_lf
                 gt_lf = upsample_lf(gt_lf, view.height, view.width)
-            t0 = time.perf_counter()
             self._state, aux = self._spatial_step(kf, lvl, view, gt_lf,
                                                   include_lf, lr_step)
-            return self._after_step(aux, t0)
+            return self._after_step(aux)
 
         binning = self._get_binning(kf, lvl, view)
         cfg = self.cfg
@@ -827,7 +839,6 @@ class GaussianMapper:
                            binning[1])
             else:
                 self._kfin_cache.pop(key, None)
-        t0 = time.perf_counter()
         # a sharded store steps on this rank's rows (self._state)
         self._full = None
         self._state, aux = train_step(
@@ -854,16 +865,17 @@ class GaussianMapper:
                 self._kfin_cache[key] = [age, aux.kfin]
                 while len(self._kfin_cache) > self.binning_cache_entries:
                     self._kfin_cache.pop(next(iter(self._kfin_cache)))
-        return self._after_step(aux, t0)
+        return self._after_step(aux)
 
-    def _after_step(self, aux, t0: float) -> Optional[float]:
+    def _after_step(self, aux) -> Optional[float]:
         """The one-view tick's tail: the periodic loss fetch and overflow
-        response, the timing, densification and the capacity ladder."""
+        response, densification and the capacity ladder."""
         # fetch the loss only periodically: each fetch waits for the card
         self._last_aux = aux
         loss = None
         if self.iteration % self.loss_sync_interval == 0:
-            loss, dropped, rendered, nvalid = aux.sync3.tolist()
+            with runtime.span("map.loss_sync"):
+                loss, dropped, rendered, nvalid = aux.sync3.tolist()
             self._approx_valid = int(nvalid)
             self.ema_loss = 0.6 * loss + 0.4 * self.ema_loss \
                 if self.iteration > 1 else loss
@@ -876,7 +888,6 @@ class GaussianMapper:
             rendered = max(int(rendered), 1)
             if dropped > 0 and dropped / rendered > 1e-3:
                 self._respond_to_overflow(dropped, rendered)
-        self.timings.append(time.perf_counter() - t0)
         self._post_step_densify()
         self._maybe_grow_capacity()
         return loss
@@ -950,7 +961,8 @@ class GaussianMapper:
         if cap >= self.capacity or self._approx_valid <= 0.6 * cap:
             return
         new_cap = min(cap * 4, self.capacity)
-        self.state = G.grow_capacity(self.state, new_cap)
+        with runtime.span("map.grow", capacity=new_cap):
+            self.state = G.grow_capacity(self.state, new_cap)
         self._ladder_cfg(new_cap)
         self._invalidate_binning()
 
@@ -973,11 +985,13 @@ class GaussianMapper:
                 self.big_points_on = True
             if self.iteration > opt.densify_from_iter and \
                     self.iteration % opt.densification_interval == 0:
-                self.state = G.densify_and_prune(
-                    self.state, self.generator, opt.densify_grad_threshold,
-                    opt.densify_min_opacity, float(self.cameras_extent),
-                    opt.max_screen_size if self.big_points_on else None,
-                    opt.percent_dense)
+                with runtime.span("map.densify"):
+                    self.state = G.densify_and_prune(
+                        self.state, self.generator,
+                        opt.densify_grad_threshold, opt.densify_min_opacity,
+                        float(self.cameras_extent),
+                        opt.max_screen_size if self.big_points_on else None,
+                        opt.percent_dense)
                 self._invalidate_binning()
             if opt.opacity_reset_interval > 0 and \
                     self.iteration % opt.opacity_reset_interval == 0:
@@ -1029,7 +1043,6 @@ class GaussianMapper:
                       self.mp.position_lr_max_steps_slam)
         batch = sharded.shard_batch(batch, self._view_group)
         self._replicate(self._view_group, self._strip_group)
-        t0 = time.perf_counter()
         if self.spatial_strips > 1:
             layout = spatial.spatial_layout(h, self.cfg.tile_h,
                                             self.spatial_strips)
@@ -1055,10 +1068,10 @@ class GaussianMapper:
         self._last_aux = aux
         loss = None
         if self.iteration % self.loss_sync_interval == 0:
-            loss = float(aux.loss)
+            with runtime.span("map.loss_sync"):
+                loss = float(aux.loss)
             self.ema_loss = 0.6 * loss + 0.4 * self.ema_loss \
                 if self.iteration > 1 else loss
-        self.timings.append(time.perf_counter() - t0)
         self._post_step_densify()
         return loss
 

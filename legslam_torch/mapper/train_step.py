@@ -20,6 +20,7 @@ from legslam_torch.config import OptimizationParams, RasterizeConfig
 from legslam_torch.models import gaussians as G
 from legslam_torch.ops import losses
 from legslam_torch.ops.rasterize import render_arrays
+from legslam_torch.utils import runtime
 
 
 class StepAux(NamedTuple):
@@ -108,19 +109,23 @@ def train_step(state: G.GaussianState,
         watermark_hint = int(watermark(valid))
     p = {name: full(t) for name, t in leaves.items()}
     sh = torch.cat([p["f_dc"], p["f_rest"]], dim=1)
-    out = render_arrays(
-        p["xyz"], sh, p["lang_feat"], torch.sigmoid(p["opacity"][:, 0]),
-        torch.exp(p["scaling"]), p["rotation"], valid, world_view,
-        full_proj, cam_center, tan_fovx, tan_fovy, width, height, bg,
-        active_sh_degree, cfg, include_lang_feat=include_lang_feat,
-        mean2d_offset=full(offset0), max_per_tile=max_per_tile,
-        binning=binning, emit_kfin=emit_kfin, watermark_hint=watermark_hint)
-    loss = losses.mapping_loss(
-        out.color, gt_color, out.lang_feat, gt_lang_feat, out.depth,
-        gt_depth, mask, opt.lambda_dssim)
+    with runtime.span("step.render"):
+        out = render_arrays(
+            p["xyz"], sh, p["lang_feat"], torch.sigmoid(p["opacity"][:, 0]),
+            torch.exp(p["scaling"]), p["rotation"], valid, world_view,
+            full_proj, cam_center, tan_fovx, tan_fovy, width, height, bg,
+            active_sh_degree, cfg, include_lang_feat=include_lang_feat,
+            mean2d_offset=full(offset0), max_per_tile=max_per_tile,
+            binning=binning, emit_kfin=emit_kfin,
+            watermark_hint=watermark_hint)
+    with runtime.span("step.loss"):
+        loss = losses.mapping_loss(
+            out.color, gt_color, out.lang_feat, gt_lang_feat, out.depth,
+            gt_depth, mask, opt.lambda_dssim)
     # without language features the lang_feat leaf is unused: zero grad
-    grads = torch.autograd.grad(loss, [*leaves.values(), offset0],
-                                allow_unused=True)
+    with runtime.span("step.backward"):
+        grads = torch.autograd.grad(loss, [*leaves.values(), offset0],
+                                    allow_unused=True)
 
     # zero grads of invalid slots so their Adam moments only decay
     def masked(g, leaf):
@@ -128,19 +133,20 @@ def train_step(state: G.GaussianState,
             return torch.zeros_like(leaf)
         return torch.where(state.valid.view((-1,) + (1,) * (g.ndim - 1)),
                            g, 0.0)
-    g_params = G.GaussianParams(*(masked(g, leaf) for g, leaf in
-                                  zip(grads[:-1], leaves.values())))
 
     # densification stats in the reference's NDC convention
     g2d = grads[-1]
-    G.add_densification_stats(
-        state, torch.stack([g2d[:, 0] * (0.5 * width),
-                            g2d[:, 1] * (0.5 * height)], dim=1),
-        capacity.local_rows(out.radii, gather_group), n_slabs=n_slabs,
-        watermark_hint=watermark_hint)
-    G.adam_update(state, g_params,
-                  make_lrs(opt, spatial_lr_scale, position_lr_step),
-                  n_slabs=n_slabs, watermark_hint=watermark_hint)
+    with runtime.span("step.adam"):
+        g_params = G.GaussianParams(*(masked(g, leaf) for g, leaf in
+                                      zip(grads[:-1], leaves.values())))
+        G.add_densification_stats(
+            state, torch.stack([g2d[:, 0] * (0.5 * width),
+                                g2d[:, 1] * (0.5 * height)], dim=1),
+            capacity.local_rows(out.radii, gather_group), n_slabs=n_slabs,
+            watermark_hint=watermark_hint)
+        G.adam_update(state, g_params,
+                      make_lrs(opt, spatial_lr_scale, position_lr_step),
+                      n_slabs=n_slabs, watermark_hint=watermark_hint)
 
     loss = loss.detach()
     color, depth = out.color.detach(), out.depth.detach()

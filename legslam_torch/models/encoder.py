@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from legslam_torch.config import IMAGENET_MEAN, IMAGENET_STD
 from legslam_torch.models import dinov2 as D
 from legslam_torch.models import pca as PCA
+from legslam_torch.utils import runtime
 
 
 class LanguageFeaturesEncoder:
@@ -48,6 +49,7 @@ class LanguageFeaturesEncoder:
         x = torch.as_tensor(rgb, device=self.device)
         return x if x.dtype == torch.uint8 else x.float()
 
+    @runtime.spanned("encoder")
     @torch.no_grad()
     def create_language_features(self, rgb) -> torch.Tensor:
         """[H, W, 3] RGB, float in [0,1] or uint8 (numpy or tensor) ->

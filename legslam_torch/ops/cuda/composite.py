@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from legslam_torch.config import ALPHA_MAX, ALPHA_MIN, T_TERMINATE
+from legslam_torch.utils import runtime
 
 GEO_X, GEO_Y, GEO_A, GEO_B, GEO_C, GEO_OP = range(6)
 GEO_ROWS = 8
@@ -331,11 +332,14 @@ def composite_image(binning, mean2d, conic, opacity, feats, width: int,
     ntx = -(-width // tile_w)
     nty = -(-height // tile_h)
     c = feats.shape[1]
-    start, count, geo, pf = prepare_pairs(binning, mean2d, conic, opacity,
-                                          feats, max_pairs, mm_dtype,
-                                          n_buckets)
-    acc, tfin, kfin = CompositeTiles.apply(start, count, geo, pf, tile_w,
-                                           tile_h, ntx, chunk, n_buckets)
+    with runtime.span("render.pairs"):
+        start, count, geo, pf = prepare_pairs(binning, mean2d, conic,
+                                              opacity, feats, max_pairs,
+                                              mm_dtype, n_buckets)
+    with runtime.span("render.composite"):
+        acc, tfin, kfin = CompositeTiles.apply(start, count, geo, pf,
+                                               tile_w, tile_h, ntx, chunk,
+                                               n_buckets)
     c_out = acc.shape[-1]
     img = acc.reshape(nty, ntx, tile_h, tile_w, c_out).permute(0, 2, 1, 3, 4)
     img = img.reshape(nty * tile_h, ntx * tile_w, c_out)[:height, :width, :c]

@@ -26,6 +26,7 @@ from legslam_torch.ops.binning import (Binning, bin_gaussians,
 from legslam_torch.ops.composite import blend_weights, masked_alpha
 from legslam_torch.ops.projection import Preprocessed, preprocess
 from legslam_torch.ops.slabs import prefix_map, watermark
+from legslam_torch.utils import runtime
 from legslam_torch.utils.camera import CameraView
 from legslam_torch.utils.sh import sh_to_color
 from legslam_torch.utils.transforms import normalize_quat
@@ -267,15 +268,18 @@ def render_arrays(means3d: torch.Tensor, sh: torch.Tensor,
         args["sh"] = sh
     if include_lang_feat:
         args["lang_feat"] = lang_feat
-    if _slabbed(cfg, means3d.shape[0]):
-        n_feat = 3 + (lang_feat.shape[-1] if include_lang_feat else 0) + 1
-        hi = watermark(valid) if watermark_hint is None else watermark_hint
-        pre, feats = prefix_map(
-            pre_feats, lambda a: _pre_skip_out(a["valid"].shape[0],
-                                               valid.device, n_feat),
-            args, hi, cfg.p_slabs)
-    else:
-        pre, feats = pre_feats(args)
+    with runtime.span("render.prologue"):
+        if _slabbed(cfg, means3d.shape[0]):
+            n_feat = 3 + (lang_feat.shape[-1] if include_lang_feat else 0) \
+                + 1
+            hi = watermark(valid) if watermark_hint is None else \
+                watermark_hint
+            pre, feats = prefix_map(
+                pre_feats, lambda a: _pre_skip_out(a["valid"].shape[0],
+                                                   valid.device, n_feat),
+                args, hi, cfg.p_slabs)
+        else:
+            pre, feats = pre_feats(args)
     pre, height = _apply_crop(pre, crop_y, crop_h, height)
 
     if binning is None:
@@ -293,9 +297,10 @@ def render_arrays(means3d: torch.Tensor, sh: torch.Tensor,
         if emit_kfin:
             kfin = kfin_all
     else:
-        img, t_final = _composite_tiles(
-            binning, pre.mean2d, pre.conic, opacity, feats,
-            width, height, cfg, max_per_tile)
+        with runtime.span("render.composite"):
+            img, t_final = _composite_tiles(
+                binning, pre.mean2d, pre.conic, opacity, feats,
+                width, height, cfg, max_per_tile)
 
     color = img[..., :3] + t_final[..., None] * bg[None, None]
     lf = img[..., 3:-1] if include_lang_feat else None

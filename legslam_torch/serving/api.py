@@ -21,15 +21,20 @@ state's device, "cuda" unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import threading
 import traceback
+from contextlib import contextmanager
 from typing import Optional
 
 import numpy as np
 
+from legslam_torch.utils import runtime
+
 RUN_TIMEOUT_S = 3600
+_requests = itertools.count()
 
 
 class ServiceState:
@@ -45,6 +50,7 @@ class ServiceState:
         self._map = None
         self._lock = threading.Lock()
 
+    @runtime.spanned("query.map")
     def gaussians(self, ply_path: Optional[str] = None):
         from legslam_torch.utils.ply import load_gaussian_ply
         path = ply_path or self.ply_path
@@ -69,8 +75,10 @@ def handle_find_objects(state: ServiceState, payload: dict) -> dict:
         query = payload["query"]
         if state.text_encoder is None:
             raise ValueError("text encoder not configured on the server")
-        text_emb = to_host(state.text_encoder([query]))[0]
-    dets = find_objects_in_gaussians(g["xyz"], g["lang_feat"], text_emb)
+        with runtime.span("query.embed"):
+            text_emb = to_host(state.text_encoder([query]))[0]
+    with runtime.span("query.search"):
+        dets = find_objects_in_gaussians(g["xyz"], g["lang_feat"], text_emb)
     top_k = int(payload.get("top_k", 5))
     return dict(query=query, objects=[
         dict(center=[float(x) for x in d.center],
@@ -126,6 +134,17 @@ ROUTES = {
 }
 
 
+@contextmanager
+def request_span(route: str):
+    """The "request" span of one request to `route`, a root numbered in
+    arrival order: the stdlib server's handler and the FastAPI handlers
+    each run a request inside one. Yields the span, whose reply status
+    (200) the handler sets when it answers otherwise."""
+    with runtime.span("request", request=next(_requests), route=route,
+                      status=200) as sp:
+        yield sp
+
+
 def make_fastapi_app(state: Optional[ServiceState] = None):
     """FastAPI app (preferred runtime when fastapi is installed)."""
     from fastapi import FastAPI, HTTPException
@@ -135,22 +154,27 @@ def make_fastapi_app(state: Optional[ServiceState] = None):
 
     @app.get("/")
     def root():
-        return ROUTES[("GET", "/")](state, {})
+        with request_span("/"):
+            return ROUTES[("GET", "/")](state, {})
 
     @app.get("/health")
     def health():
-        return dict(status="ok")
+        with request_span("/health"):
+            return dict(status="ok")
 
     @app.post("/find_objects")
     def find_objects(payload: dict):
-        try:
-            return handle_find_objects(state, payload)
-        except Exception as e:  # noqa: BLE001
-            raise HTTPException(status_code=400, detail=str(e))
+        with request_span("/find_objects") as sp:
+            try:
+                return handle_find_objects(state, payload)
+            except Exception as e:  # noqa: BLE001
+                sp.set(status=400)
+                raise HTTPException(status_code=400, detail=str(e))
 
     @app.post("/run_legs_slam")
     def run_slam(payload: dict):
-        return handle_run_legs_slam(state, payload)
+        with request_span("/run_legs_slam"):
+            return handle_run_legs_slam(state, payload)
 
     return app
 
@@ -171,20 +195,26 @@ def serve_stdlib(state: Optional[ServiceState] = None, host: str = "0.0.0.0",
             self.end_headers()
             self.wfile.write(data)
 
-        def _route(self, method: str):
+        def _reply(self, method: str) -> tuple[int, dict]:
             fn = ROUTES.get((method, self.path))
             if fn is None:
-                return self._respond(404, dict(error="not found"))
+                return 404, dict(error="not found")
             payload = {}
             if method == "POST":
                 n = int(self.headers.get("Content-Length", 0))
                 if n:
                     payload = json.loads(self.rfile.read(n))
             try:
-                self._respond(200, fn(st, payload))
+                return 200, fn(st, payload)
             except Exception as e:  # noqa: BLE001
                 traceback.print_exc()
-                self._respond(400, dict(error=str(e)))
+                return 400, dict(error=str(e))
+
+        def _route(self, method: str):
+            with request_span(self.path) as sp:
+                code, body = self._reply(method)
+                sp.set(status=code)
+                self._respond(code, body)
 
         def do_GET(self):  # noqa: N802
             self._route("GET")

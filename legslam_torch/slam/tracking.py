@@ -53,6 +53,7 @@ from legslam_torch.slam.interface import (
     OperationQueue,
     OpKind,
 )
+from legslam_torch.utils import runtime
 
 try:
     import cv2
@@ -94,6 +95,7 @@ def to_gray(color: np.ndarray) -> np.ndarray:
     return (np.clip(color, 0.0, 1.0) * 255).astype(np.uint8)
 
 
+@runtime.spanned("track.keypoints")
 def detect_corners(gray: np.ndarray, max_corners: int,
                    min_distance: int = 7,
                    avoid: Optional[np.ndarray] = None) -> np.ndarray:
@@ -874,6 +876,7 @@ class TrackingFrontend:
                 kind=OpKind.SCALE_REFINEMENT, keyframes=packets, scale=s))
 
     # -- main per-frame entry ---------------------------------------------
+    @runtime.spanned("track")
     def track(self, frame: RGBDFrame,
               lf_image: Optional[np.ndarray | torch.Tensor] = None,
               color_right: Optional[np.ndarray] = None,

@@ -25,6 +25,7 @@ from legslam_torch.slam.interface import (
     OperationQueue,
     OpKind,
 )
+from legslam_torch.utils import runtime
 
 try:
     import cv2
@@ -33,6 +34,7 @@ except Exception:  # pragma: no cover
     _HAS_CV2 = False
 
 
+@runtime.spanned("track.keypoints")
 def detect_keypoints(color: np.ndarray, max_corners: int = 800,
                      min_distance: int = 7) -> np.ndarray:
     """[N,2] corner pixels (x,y). Shi-Tomasi corners as the stand-in for
@@ -71,6 +73,7 @@ class TrajectoryFrontend:
         self.map_point_ratio = map_point_ratio
         self._n_keyframes = 0
 
+    @runtime.spanned("track")
     def track(self, frame: RGBDFrame,
               lf_image: Optional[np.ndarray | torch.Tensor] = None
               ) -> Optional[KeyframePacket]:

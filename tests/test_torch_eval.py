@@ -297,10 +297,13 @@ def test_synthetic_preload(tmp_path):
 
 def test_runtime_helpers(tmp_path):
     from legslam_torch.utils import runtime
-    sink = []
-    with runtime.timed("x", sink):
+    runtime.tracing(True)
+    with runtime.span("x", level=1):
         torch.ones(4).sum()
-    assert sink[0][0] == "x" and sink[0][1] >= 0.0
+    runtime.tracing(False)
+    (x,) = runtime.trace_export()
+    assert x["name"] == "x" and x["attrs"] == {"level": 1}
+    assert x["end_ns"] >= x["start_ns"]
     with runtime.profile_trace(str(tmp_path / "prof")) as d:
         torch.ones(8) @ torch.ones(8)
     trace = os.path.join(d, "trace.json")
