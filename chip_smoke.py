@@ -27,7 +27,9 @@ Phases (each prints one or more lines; any failure exits non-zero):
      over those 24 steps, then each kernel against its plain version on
      the first step's inputs (the initial store, the same in every run),
      with a digest of the forward's t_final and kfin there, and CUDA-event
-     times on a reuse step's inputs, with the bound; the SM
+     times on a reuse step's inputs, with the bound; the same for the
+     render prologue's kernel pair (csrc/prologue.cu: projection, conic,
+     radius, SH colour and the feature matrix, forward and backward); the SM
      clock, power draw and temperature are sampled beside the step and
      the kernel timings; then the radix sort kernels at the main path's
      shapes, as bin_gaussians launches them with cuda_sort: the scene's
@@ -154,7 +156,8 @@ Phases (each prints one or more lines; any failure exits non-zero):
      {"ok": true, "device": {...}}.
 
 Each kernel's `launches` is its count over the path that runs it: the
-compositing kernels' over phase 4's 24 steps, the sort kernels' over
+compositing and prologue kernels' over phase 4's 24 steps (the prologue's
+forward also over its 3 fresh binnings), the sort kernels' over
 phase 5's training loop (phase 4 runs cuda_sort at its default and
 counts their launches too); `query_launches` is its count over phase 7's
 pixel-space search, `visual_launches` over phase 8's [visual] system loop,
@@ -163,7 +166,8 @@ over phase 11's [undistort] run and `inertial_launches` over its three
 [inertial] runs together, `eval_launches` over phase 12's [eval],
 [run_legs_slam], [miou], [offline] and [detect] calls together (each
 part's own count is on its line), `deploy_launches` the deployed
-server's count over phase 13's first /run_legs_slam request, and a
+server's count over phase 13's first /run_legs_slam request (None for the
+prologue's pair, which the server's replies do not count), and a
 compositing kernel's `bucketed_*` keys are phase 9's [buckets] readings
 (its launches over the 8 bucketed steps).
 It needs a CUDA device and the repository beside it; without either it
@@ -507,6 +511,106 @@ def check_kernels(fwd_args, bwd_args, label, card, fails):
     return dict(fwd=e_all, bwd=max(e_g, e_f))
 
 
+def capture_prologue_inputs(run):
+    """Run `run()` (one mapping step on a given binning) and return the
+    arguments of its render's prologue: the forward's and the backward's
+    (ops/cuda/prologue.py), each the last call of its wrapper."""
+    from legslam_torch.ops.cuda import prologue as pr
+    seen = {}
+    fwd, bwd = pr.prologue_forward, pr.prologue_backward
+
+    def rec_fwd(*a):
+        seen["fwd"] = a
+        return fwd(*a)
+
+    def rec_bwd(*a):
+        seen["bwd"] = a
+        return bwd(*a)
+    # the wrappers count on the module attribute, as in
+    # capture_kernel_inputs
+    rec_fwd.launches = rec_bwd.launches = 0
+    pr.prologue_forward, pr.prologue_backward = rec_fwd, rec_bwd
+    try:
+        run()
+    finally:
+        pr.prologue_forward, pr.prologue_backward = fwd, bwd
+    return seen["fwd"], seen["bwd"]
+
+
+@torch.no_grad()
+def check_prologue(fwd_args, bwd_args, label, card, fails):
+    """The prologue kernels against their plain versions on the same
+    inputs: radius, mask and depth bit for bit (binning sorts on depth);
+    mean2d atol 1e-4 / rtol 1e-5, conic and the features atol 1e-5 / rtol
+    1e-5 (tests/test_torch_prologue.py's value tolerances); each gradient
+    atol 1e-5 x its largest plain value / rtol 1e-4
+    (tests/test_torch_prologue_cuda.py's, and why). Returns the largest
+    forward and backward |err|."""
+    from legslam_torch.ops.cuda import prologue as pr
+    pre_k, f_k = pr.prologue_forward(*fwd_args)
+    torch.cuda.synchronize()
+    pre_p, f_p = pr.prologue_forward_plain(*fwd_args)
+    differ = {n: int((getattr(pre_k, n) != getattr(pre_p, n)).sum())
+              for n in ("depth", "radius", "mask")}
+    e_m, ok_m = close(pre_k.mean2d, pre_p.mean2d, 1e-4, 1e-5)
+    e_c, ok_c = close(pre_k.conic, pre_p.conic, 1e-5, 1e-5)
+    e_f, ok_f = close(f_k, f_p, 1e-5, 1e-5)
+    g_k = pr.prologue_backward(*bwd_args)
+    torch.cuda.synchronize()
+    g_p = pr.prologue_backward_plain(*bwd_args)
+    grads = {n: close(a, b, 1e-5 * float(b.abs().max()), 1e-4) + (
+        float(b.abs().max()),) for n, a, b in zip(
+        ("xyz", "scales", "quats", "sh", "offset"), g_k, g_p)
+        if b is not None}
+    print(f"[prologue {label}] {int(fwd_args[5])} of "
+          f"{int(fwd_args[0].shape[0])} rows; elements that differ "
+          f"{differ}; fwd max|err| mean2d {e_m:.3g} conic {e_c:.3g} feats "
+          f"{e_f:.3g}; bwd max|err| " + ", ".join(
+              f"d{n} {e:.3g} (max {m:.3g})" for n, (e, _, m) in grads.items())
+          + f" [{card}]")
+    for ok, what in ((not any(differ.values()), "depth/radius/mask"),
+                     (ok_m, "mean2d"), (ok_c, "conic"), (ok_f, "feats"),
+                     *((ok, "d" + n) for n, (_, ok, _) in grads.items())):
+        if not ok:
+            fails.append(f"prologue {label}: {what} outside tolerance")
+    return dict(fwd=max(e_m, e_c, e_f),
+                bwd=max(e for e, _, _ in grads.values()))
+
+
+# float operations a row of the prologue kernels, counted from
+# csrc/prologue.cu at SH degree 3 (the geometry ~270, the colour ~150; the
+# backward recomputes the geometry and differentiates both): the bytes
+# bind by some twentyfold, so the count only has to be of the right size
+PROLOGUE_OPS_FWD = 420
+PROLOGUE_OPS_BWD = 950
+
+
+def prologue_bound(fwd_args) -> dict:
+    """Least times (ms) of the prologue kernels on these inputs: each
+    input byte of the computed rows read once and each output byte of
+    every row written once, over the HBM rate, against the operations at
+    the CUDA-core peak."""
+    xyz, _, _, _, _, rows, sh, colors, lang_feat, offset, deg = fwd_args
+    P = xyz.shape[0]
+    lf = 0 if lang_feat is None else lang_feat.shape[1]
+    k = 0 if sh is None or colors is not None else sh.shape[1]
+    colour = 12 if colors is not None else 12 * (deg + 1) ** 2
+    geo_in = 12 + 12 + 16
+    fwd_bytes = rows * (geo_in + 1 + colour + 4 * lf
+                        + (8 if offset is not None else 0)) + \
+        P * (8 + 12 + 4 + 4 + 1 + 4 * (3 + lf + 1))
+    bwd_bytes = rows * (geo_in + colour + 8 + 12 + 16) + \
+        P * (geo_in + 12 * k + (8 if offset is not None else 0))
+    out = {}
+    for name, b, o in (("fwd", fwd_bytes, rows * PROLOGUE_OPS_FWD),
+                       ("bwd", bwd_bytes, rows * PROLOGUE_OPS_BWD)):
+        tb, to = b / PEAK_BYTES * 1e3, o / PEAK_F32_OPS * 1e3
+        out[name] = dict(bound_ms=max(tb, to),
+                         bound_by="bytes" if tb >= to else "operations",
+                         bytes=b, ops=o)
+    return out
+
+
 def check_backends(st, view, gt, mm_dtype, card, fails):
     """The "cuda" backend's render and gradients against the "torch"
     reference compositor on the card: color / depth / final_t atol 3e-5 /
@@ -655,13 +759,20 @@ def sync(dev):
 
 
 def path_kernels() -> dict:
-    """The four kernel wrappers of the mapping path, by kernel name."""
+    """The kernel wrappers of the mapping path, by kernel name."""
     from legslam_torch.ops.cuda import composite as cf
     from legslam_torch.ops.cuda import composite_bwd as cb
+    from legslam_torch.ops.cuda import prologue as pr
     from legslam_torch.ops.cuda import sort as cs
     return dict(composite_fwd=cf.composite_forward,
                 composite_bwd=cb.composite_backward,
-                sort_keys=cs.sort_keys, sort_kv=cs.sort_kv)
+                sort_keys=cs.sort_keys, sort_kv=cs.sort_kv,
+                prologue_fwd=pr.prologue_forward,
+                prologue_bwd=pr.prologue_backward)
+
+
+# the kernels the server counts in its replies (serving/api.kernel_launches)
+SERVER_KERNELS = ("composite_fwd", "composite_bwd", "sort_keys", "sort_kv")
 
 
 # --- the sort kernels --------------------------------------------------------
@@ -1054,10 +1165,16 @@ def mapper_phase(dev, card, fails, out_dir, ds, frames, render_s):
         if launches[k] != mapper.fresh_binnings:
             fails.append(f"mapper: {k} launched {launches[k]} times for "
                          f"{mapper.fresh_binnings} fresh binnings")
-    for k in ("composite_fwd", "composite_bwd"):
+    for k in ("composite_fwd", "composite_bwd", "prologue_bwd"):
         if launches[k] != mapper.iteration:
             fails.append(f"mapper: {k} launched {launches[k]} times in "
                          f"{mapper.iteration} iterations")
+    # one prologue a render and a fresh binning
+    if launches["prologue_fwd"] != mapper.iteration + mapper.fresh_binnings:
+        fails.append(f"mapper: prologue_fwd launched "
+                     f"{launches['prologue_fwd']} times for "
+                     f"{mapper.iteration} iterations and "
+                     f"{mapper.fresh_binnings} fresh binnings")
     if not same:
         fails.append("mapper: the final binning differs with cuda_sort")
     if not grown_same:
@@ -4073,16 +4190,17 @@ def run_legs_slam_phase(dev, card, fails, scene, out_dir):
     shown = {k: m.get(k) for k in ("frames", "psnr", "ssim", "depth_l1_cm",
                                    "n_gaussians", "fps")}
     reported = reply.get("kernel_launches")
+    served = {k: launches[k] for k in SERVER_KERNELS}
     print(f"[run_legs_slam] POST /run_legs_slam (max_frames "
           f"{RLS_MAX_FRAMES}) on serve_stdlib: status {reply.get('status')}"
           f" in {ms:.1f} ms (host clock); metrics {shown}; launches "
           f"{launches}, the reply's kernel_launches equal: "
-          f"{reported == launches} [{card}]")
+          f"{reported == served} [{card}]")
     if reply.get("status") != "completed" or not finite:
         fails.append(f"run_legs_slam: {reply}")
-    if reported != launches:
+    if reported != served:
         fails.append(f"run_legs_slam: the reply's kernel_launches "
-                     f"{reported} vs counted {launches}")
+                     f"{reported} vs counted {served}")
     for k in ("composite_fwd", "composite_bwd"):
         if launches[k] == 0:
             fails.append(f"run_legs_slam: {k} launched no time")
@@ -4647,7 +4765,7 @@ def evaluation_phase(dev, card, fails, out_dir, enc):
 
 REPO = Path(__file__).resolve().parent
 DOCKERFILE = REPO / "Dockerfile.torch"
-CUDA_KERNELS = ("composite_fwd", "composite_bwd", "sort")
+CUDA_KERNELS = ("composite_fwd", "composite_bwd", "sort", "prologue")
 PIP = ("-m", "pip", "--disable-pip-version-check", "--no-cache-dir",
        "--quiet")
 
@@ -4851,8 +4969,9 @@ def deploy_phase(card, fails, served: dict, rls: dict) -> dict:
                     for k in ("ate_rmse", "ate_mean"))
             n = answer.get("kernel_launches") or {}
             unlaunched = [k for k, v in rls["launches"].items()
-                          if (v > 0 or k in ("composite_fwd",
-                                             "composite_bwd"))
+                          if k in SERVER_KERNELS
+                          and (v > 0 or k in ("composite_fwd",
+                                              "composite_bwd"))
                           and not n.get(k, 0) > 0]
             runs.append(dict(answer=answer, ms=ms, gaps=gaps, ok=ok,
                              launches=n, unlaunched=unlaunched))
@@ -4917,7 +5036,7 @@ def deploy_phase(card, fails, served: dict, rls: dict) -> dict:
 
 def build_phase():
     from legslam_torch import _build
-    names = ("composite_fwd", "composite_bwd", "sort")
+    names = CUDA_KERNELS
     t0 = time.perf_counter()
     secs = _build.build(names)
     print(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: "
@@ -4936,6 +5055,9 @@ def build_phase():
             if "ILi72E" in line:
                 dtype = "bf16" if "bfloat16" in line else "f32"
                 print(f"[build] {n} <72, {dtype}>: {tail}")
+            elif n == "prologue":
+                form = "bwd" if "bwd_kernel" in line else "fwd"
+                print(f"[build] prologue {form}: {tail}")
             elif n == "sort":
                 form = "kv" if "ILb1E" in line else "keys"
                 if "histogram" in line:
@@ -4960,6 +5082,7 @@ def main() -> int:
     from legslam_torch.models import gaussians as G
     from legslam_torch.ops.cuda import composite as cf
     from legslam_torch.ops.cuda import composite_bwd as cb
+    from legslam_torch.ops.cuda import prologue as pr
     from legslam_torch.ops.cuda import sort as cs
 
     dev = torch.device("cuda")
@@ -4994,7 +5117,9 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     main_kernels = dict(fwd=cf.composite_forward, bwd=cb.composite_backward,
-                        sort_keys=cs.sort_keys, sort_kv=cs.sort_kv)
+                        sort_keys=cs.sort_keys, sort_kv=cs.sort_kv,
+                        prologue_fwd=pr.prologue_forward,
+                        prologue_bwd=pr.prologue_backward)
     for fn in main_kernels.values():
         fn.launches = 0
     group_ms, losses = [], []
@@ -5017,7 +5142,9 @@ def main() -> int:
           f"; launches over {steps} steps fwd {launches['fwd']} bwd "
           f"{launches['bwd']}, cuda_sort {cuda_sort}: sort_keys "
           f"{launches['sort_keys']} sort_kv {launches['sort_kv']} "
-          f"(3 fresh binnings); group ms {[round(x, 2) for x in group_ms]}; "
+          f"(3 fresh binnings), prologue fwd {launches['prologue_fwd']} bwd "
+          f"{launches['prologue_bwd']}; group ms "
+          f"{[round(x, 2) for x in group_ms]}; "
           f"median ms/step of the timed groups {step_ms:.3f}; "
           f"max_memory_allocated {peak_gib:.2f} GiB [{card}]")
     print(f"[clocks] main path: {clk_main.summary()} [{card}]")
@@ -5031,6 +5158,12 @@ def main() -> int:
         if launches[k] != (3 if cuda_sort else 0):
             fails.append(f"main: {k} launched {launches[k]} times for 3 "
                          f"fresh binnings, cuda_sort {cuda_sort}")
+    # the prologue: one forward a render and a fresh binning, one backward
+    # a step
+    for k, want in (("prologue_fwd", steps + 3), ("prologue_bwd", steps)):
+        if launches[k] != want:
+            fails.append(f"main: {k} launched {launches[k]} times in "
+                         f"{steps} steps and 3 fresh binnings")
 
     # the kernels against their plain versions on the first step's inputs,
     # the same in every run; the trained store is not (float atomics add in
@@ -5038,11 +5171,36 @@ def main() -> int:
     # pair at the 0.99 alpha clamp, whose pixel ends at T = 1e-2 within
     # rounding, the bound of check_kernels' exemption
     first = StepLoop(st0, view, gt, make_cfg(1 << 20, "bfloat16"))
-    fa, ba = capture_kernel_inputs(lambda: first.step(first._binning()))
+    seen = {}
+    binning0 = first._binning()
+    fa, ba = capture_kernel_inputs(lambda: seen.update(pro=(
+        capture_prologue_inputs(lambda: first.step(binning0)))))
     errs = check_kernels(fa, ba, "1200x680 bf16", card, fails)
-    del first, st0
+    pro_errs = check_prologue(*seen["pro"], "1200x680", card, fails)
+    del first, st0, binning0
     # timed on a reuse step's inputs
-    fa, ba = capture_kernel_inputs(lambda: drv.step(drv.binning))
+    fa, ba = capture_kernel_inputs(lambda: seen.update(pro=(
+        capture_prologue_inputs(lambda: drv.step(drv.binning)))))
+    pfa, pba = seen.pop("pro")
+    pro_b = prologue_bound(pfa)
+    with ClockSampler() as clk_pro:
+        pro_times = dict(
+            fwd=event_ms(lambda: pr.prologue_forward(*pfa), 50),
+            bwd=event_ms(lambda: pr.prologue_backward(*pba), 50))
+    pro_times.update(
+        fwd_plain=event_ms(lambda: pr.prologue_forward_plain(*pfa), 5),
+        bwd_plain=event_ms(lambda: pr.prologue_backward_plain(*pba), 5))
+    print(f"[prologue] times at 1200x680 ({int(pfa[5])} of "
+          f"{int(pfa[0].shape[0])} rows, SH degree {pfa[10]}, LF "
+          f"{pfa[8].shape[1]}): fwd {pro_times['fwd']:.4f} ms (plain "
+          f"{pro_times['fwd_plain']:.3f}, bound "
+          f"{pro_b['fwd']['bound_ms']:.4f} by {pro_b['fwd']['bound_by']}); "
+          f"bwd {pro_times['bwd']:.4f} ms (plain "
+          f"{pro_times['bwd_plain']:.3f}, bound "
+          f"{pro_b['bwd']['bound_ms']:.4f} by {pro_b['bwd']['bound_by']}) "
+          f"[{card}]")
+    print(f"[clocks] prologue timing: {clk_pro.summary()} [{card}]")
+    del pfa, pba
     _, _, kfin = cf.composite_forward(*fa)
     b = bounds(fa, kfin)
     with ClockSampler() as clk_kernels:
@@ -5189,6 +5347,21 @@ def main() -> int:
                          bucketed_plain_ms=bt[f"{k}_plain"],
                          bucketed_bound_ms=bucketed["bounds"][k]["bound_ms"],
                          bucketed_bound_by=bucketed["bounds"][k]["bound_by"]))
+    for k, name in (("fwd", "prologue_fwd"), ("bwd", "prologue_bwd")):
+        rows.append(dict(name=name, route="cuda",
+                         source="legslam_torch/csrc/prologue.cu",
+                         replaces=None, launches=launches[name],
+                         query_launches=query_launches[name],
+                         visual_launches=visual_launches[name],
+                         ladder_launches=ladder_launches[name],
+                         undistort_launches=undistort_launches[name],
+                         inertial_launches=inertial_launches[name],
+                         eval_launches=eval_launches[name],
+                         deploy_launches=None,
+                         max_abs_err=pro_errs[k], ms=pro_times[k],
+                         plain_ms=pro_times[f"{k}_plain"],
+                         bound_ms=pro_b[k]["bound_ms"],
+                         bound_by=pro_b[k]["bound_by"], library_ms=None))
     for name, tpu in (("sort_keys", "legslam_tpu/ops/pallas/sort.py:111"),
                       ("sort_kv", "legslam_tpu/ops/pallas/sort.py:116")):
         rows.append(dict(name=name, route="cuda",

@@ -4,7 +4,10 @@ Counterpart of legslam_tpu/ops/rasterize.py (reference
 GaussianRenderer::render, src/gaussian_renderer.cpp:23-161 and
 Rasterizer::forward, rasterizer_impl.cu:198-343):
 
-  * preprocess over the capacity-padded gaussian axis (ops/projection.py),
+  * the per-gaussian prologue (projection, EWA conic and radius, SH colour
+    and the fused feature matrix) over the capacity-padded gaussian axis,
+    one kernel launch each way (ops/cuda/prologue.py; on CPU tensors its
+    plain version: ops/projection.py, utils/sh.py),
   * packed-key sort binning (ops/binning.py),
   * compositing of RGB(3) + language features(64) + view depth(1) as one
     fused feature matrix, by one of two backends:
@@ -24,33 +27,23 @@ from legslam_torch.config import RasterizeConfig
 from legslam_torch.ops.binning import (Binning, bin_gaussians,
                                        bin_gaussians_bucketed)
 from legslam_torch.ops.composite import blend_weights, masked_alpha
-from legslam_torch.ops.projection import Preprocessed, preprocess
-from legslam_torch.ops.slabs import prefix_map, watermark
+from legslam_torch.ops.cuda.prologue import View, prologue
+from legslam_torch.ops.projection import Preprocessed
+from legslam_torch.ops.slabs import prefix_rows, watermark
 from legslam_torch.utils import runtime
 from legslam_torch.utils.camera import CameraView
-from legslam_torch.utils.sh import sh_to_color
-from legslam_torch.utils.transforms import normalize_quat
 
 
-def _pre_skip_out(n: int, device, extra_cols: int | None = None):
-    """Inert Preprocessed rows for the rows past the watermark prefix
-    (cfg.p_slabs): mask False and radius 0 keep them out of binning and
-    the statistics; mean2d -1e6 with a unit conic gives any consumer
-    alpha 0. The same as what live code gives culled rows downstream."""
-    pre = Preprocessed(
-        mean2d=torch.full((n, 2), -1e6, device=device),
-        conic=torch.tensor([[1.0, 0.0, 1.0]], device=device).repeat(n, 1),
-        depth=torch.zeros(n, device=device),
-        radius=torch.zeros(n, dtype=torch.int32, device=device),
-        mask=torch.zeros(n, dtype=torch.bool, device=device))
-    if extra_cols is None:
-        return pre
-    return pre, torch.zeros(n, extra_cols, device=device)
-
-
-def _slabbed(cfg: RasterizeConfig, P: int) -> bool:
-    """Whether cfg.p_slabs applies to a store of P rows."""
-    return bool(cfg.p_slabs) and P % cfg.p_slabs == 0
+def _prologue_rows(cfg: RasterizeConfig, valid: torch.Tensor,
+                   watermark_hint: int | None) -> int:
+    """The rows the prologue computes: with cfg.p_slabs (and a capacity it
+    divides) the whole-slab prefix covering the live watermark
+    (ops/slabs.py), else all of them."""
+    P = valid.shape[0]
+    if not cfg.p_slabs or P % cfg.p_slabs:
+        return P
+    hi = watermark(valid) if watermark_hint is None else watermark_hint
+    return prefix_rows(hi, P, cfg.p_slabs)
 
 
 class RasterizeOutput(NamedTuple):
@@ -181,22 +174,11 @@ def compute_binning(means3d: torch.Tensor, scales: torch.Tensor,
     opacity expected, like render_arrays). crop_y/crop_h bin only the
     pixel-row strip [crop_y, crop_y + crop_h) (see render_arrays);
     watermark_hint as in render_arrays."""
-    focal_x = width / (2.0 * tan_fovx)
-    focal_y = height / (2.0 * tan_fovy)
-
-    def run_pre(a):
-        return preprocess(a["xyz"], a["scales"], normalize_quat(a["quats"]),
-                          a["valid"], world_view, full_proj, width, height,
-                          focal_x, focal_y, tan_fovx, tan_fovy,
-                          scale_modifier)
-
-    args = dict(xyz=means3d, scales=scales, quats=quats, valid=valid)
-    if _slabbed(cfg, means3d.shape[0]):
-        hi = watermark(valid) if watermark_hint is None else watermark_hint
-        pre = prefix_map(run_pre, lambda a: _pre_skip_out(
-            a["valid"].shape[0], valid.device), args, hi, cfg.p_slabs)
-    else:
-        pre = run_pre(args)
+    view = View(world_view, full_proj, None, width, height,
+                width / (2.0 * tan_fovx), height / (2.0 * tan_fovy),
+                tan_fovx, tan_fovy, scale_modifier)
+    pre, _ = prologue(means3d, scales, quats, valid, view,
+                      _prologue_rows(cfg, valid, watermark_hint))
     pre, height = _apply_crop(pre, crop_y, crop_h, height)
     return make_binning(pre, width, height, cfg, max_per_tile,
                         opacity=opacity)
@@ -232,54 +214,26 @@ def render_arrays(means3d: torch.Tensor, sh: torch.Tensor,
     render whenever the full render has span_overflow 0 (a strip clamps a
     gaussian's tile rect at its edge, so the span cap truncates less).
 
-    With cfg.p_slabs the per-gaussian prologue (preprocess, SH, the
-    feature matrix) runs on the whole-slab prefix of the rows that covers
-    the store's live watermark (ops/slabs.py), the rest inert.
-    `watermark_hint` is that watermark when the caller knows it on the
-    host; None reads it from `valid` (one synchronisation)."""
-    focal_x = width / (2.0 * tan_fovx)
-    focal_y = height / (2.0 * tan_fovy)
-
-    def pre_feats(a):
-        """The rowwise prologue: preprocess, SH and the fused feature
-        matrix, as one region for the slab skip."""
-        pre = preprocess(a["xyz"], a["scales"], normalize_quat(a["quats"]),
-                         a["valid"], world_view, full_proj, width, height,
-                         focal_x, focal_y, tan_fovx, tan_fovy,
-                         scale_modifier)
-        if "offset" in a:
-            pre = pre._replace(mean2d=pre.mean2d + a["offset"])
-        rgb = a["colors"] if "colors" in a else \
-            sh_to_color(active_sh_degree, a["sh"], a["xyz"], cam_center)
-        # the reference accumulates dL/ddepth per gaussian but never
-        # applies it to the means (backward.cu:573-580 vs preprocess);
-        # stop_depth_grad replicates that dead end
-        depth = pre.depth.detach() if stop_depth_grad else pre.depth
-        parts = [rgb] + ([a["lang_feat"]] if include_lang_feat else []) \
-            + [depth[:, None]]
-        return pre, torch.cat(parts, dim=-1)
-
-    args = dict(xyz=means3d, scales=scales, quats=quats, valid=valid)
-    if mean2d_offset is not None:
-        args["offset"] = mean2d_offset
-    if colors_precomp is not None:
-        args["colors"] = colors_precomp
-    else:
-        args["sh"] = sh
-    if include_lang_feat:
-        args["lang_feat"] = lang_feat
+    The per-gaussian prologue (preprocess, SH, the feature matrix;
+    ops/cuda/prologue.py: its kernel pair for CUDA tensors whatever the
+    compositor, its plain version for CPU tensors) runs, with cfg.p_slabs,
+    on the whole-slab prefix of the rows that covers the store's live
+    watermark (ops/slabs.py), the rest inert. `watermark_hint` is that
+    watermark when the caller knows it on the host; None reads it from
+    `valid` (one synchronisation). stop_depth_grad: the reference
+    accumulates dL/ddepth per gaussian but never applies it to the means
+    (backward.cu:573-580 vs preprocess); True replicates that dead end."""
+    view = View(world_view, full_proj, cam_center, width, height,
+                width / (2.0 * tan_fovx), height / (2.0 * tan_fovy),
+                tan_fovx, tan_fovy, scale_modifier)
     with runtime.span("render.prologue"):
-        if _slabbed(cfg, means3d.shape[0]):
-            n_feat = 3 + (lang_feat.shape[-1] if include_lang_feat else 0) \
-                + 1
-            hi = watermark(valid) if watermark_hint is None else \
-                watermark_hint
-            pre, feats = prefix_map(
-                pre_feats, lambda a: _pre_skip_out(a["valid"].shape[0],
-                                                   valid.device, n_feat),
-                args, hi, cfg.p_slabs)
-        else:
-            pre, feats = pre_feats(args)
+        pre, feats = prologue(
+            means3d, scales, quats, valid, view,
+            _prologue_rows(cfg, valid, watermark_hint),
+            sh=sh if colors_precomp is None else None, colors=colors_precomp,
+            lang_feat=lang_feat if include_lang_feat else None,
+            offset=mean2d_offset, active_sh_degree=active_sh_degree,
+            stop_depth_grad=stop_depth_grad)
     pre, height = _apply_crop(pre, crop_y, crop_h, height)
 
     if binning is None:

@@ -10,9 +10,11 @@ with zero Adam moments and zero gradients. The segments can therefore run
 on a row prefix that covers the watermark: exactly, by those invariants.
 
 The JAX package switched over n_slabs static prefix lengths with
-lax.switch; here the prefix is a plain slice. The prefix is still quantised
-to whole slabs (capacity / n_slabs rows each), so both packages run the
-same rows. Slicing needs the watermark on the host: `watermark` returns it
+lax.switch (its prefix_map); here the prefix is a row count that each
+segment takes as it is: the prologue kernel pair computes the prefix and
+writes the rest inert (ops/cuda/prologue.py), Adam and the statistics
+slice it (models/gaussians.py). The prefix is still quantised to whole
+slabs (capacity / n_slabs rows each), so both packages run the same rows. Slicing needs the watermark on the host: `watermark` returns it
 as a tensor on the store's device, and `prefix_rows` reads it (one
 synchronisation) unless the caller passes a host integer it already knows,
 as the mapper does from its own allocation bookkeeping.
@@ -37,33 +39,3 @@ def prefix_rows(hi, P: int, n_slabs: int) -> int:
     slab = P // n_slabs
     k = min(max(-(-int(hi) // slab), 1), n_slabs)
     return slab * k
-
-
-def prefix_map(fn, tail_fn, args: dict, hi, n_slabs: int):
-    """Apply rowwise `fn` over the whole-slab row prefix covering `hi`.
-
-    args: a dict of tensors sharing a leading axis P (P % n_slabs == 0).
-    fn(prefix_args) returns a tensor or a (nested) tuple of tensors of
-    [m, ...] rows for the covering prefix m; tail_fn(tail_args) the same
-    structure for the remaining [P - m, ...] rows (constants for pad-style
-    outputs, or the sliced inputs themselves for update-in-place
-    semantics). The outputs are concatenated back to [P, ...].
-
-    Exactness contract: rows >= hi must be don't-care (the render path:
-    masked and radius-0 downstream) or fixed points of fn (Adam and the
-    statistics on zero-moment, zero-gradient rows).
-    """
-    P = next(iter(args.values())).shape[0]
-    m = prefix_rows(hi, P, n_slabs)
-    head = fn({k: v[:m] for k, v in args.items()})
-    if m == P:
-        return head
-    return _cat(head, tail_fn({k: v[m:] for k, v in args.items()}))
-
-
-def _cat(head, tail):
-    """Row-concatenate matching (nested tuple / NamedTuple) outputs."""
-    if isinstance(head, torch.Tensor):
-        return torch.cat([head, tail])
-    parts = [_cat(h, t) for h, t in zip(head, tail)]
-    return type(head)(*parts) if hasattr(head, "_fields") else tuple(parts)

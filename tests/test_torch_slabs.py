@@ -1,9 +1,9 @@
 """legslam_torch's watermark slab skip, crop renders and dense oracle vs
 legslam_tpu's.
 
-* watermark / prefix_rows / prefix_map against JAX's watermark and
-  prefix_map (the same whole-slab prefix, the same values, gradients zero
-  above it);
+* watermark / prefix_rows against JAX's watermark and the prefix its
+  prefix_map computes on (the same whole-slab prefix; the prologue's values
+  and zero gradients above it are tests/test_torch_prologue_fused.py's);
 * train_step with p_slabs=8 against p_slabs=0 on a store with interior
   holes and a dead tail of stale rows: loss, the updated store and the
   statistics bit for bit (every slabbed segment is rowwise, so its rows
@@ -55,19 +55,13 @@ def test_watermark_and_prefix_match_jax(rows):
     hi_j = int(JS.watermark(jnp.asarray(v)))
     hi_t = TS.watermark(t_(v))
     assert int(hi_t) == hi_j
+    # the rows JAX's prefix_map computes: those its tail_fn does not give
     x = np.arange(16.0, dtype=np.float32)
-    yj = JS.prefix_map(lambda a: a * a, jnp.zeros_like, jnp.asarray(x),
+    yj = JS.prefix_map(lambda a: a + 1.0, jnp.zeros_like, jnp.asarray(x),
                        jnp.int32(hi_j), 4)
-    xt = t_(x).requires_grad_(True)
-    yt = TS.prefix_map(lambda a: a["x"] * a["x"],
-                       lambda a: torch.zeros_like(a["x"]), dict(x=xt),
-                       hi_t, 4)
-    np.testing.assert_array_equal(np_(yt), np.asarray(yj))
     m = TS.prefix_rows(hi_t, 16, 4)
+    assert m == int(np.count_nonzero(np.asarray(yj)))
     assert m == max(-(-hi_j // 4), 1) * 4
-    yt.sum().backward()
-    np.testing.assert_array_equal(np_(xt.grad)[m:], 0.0)
-    np.testing.assert_array_equal(np_(xt.grad)[:m], 2 * x[:m])
 
 
 def _holey_store():
