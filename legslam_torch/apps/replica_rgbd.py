@@ -19,6 +19,13 @@ tree, TrackingTime.txt, GpuPeakUsageMB.txt and the trajectory files. With
 language features on the device (models/encoder.py), and the keyframes
 keep them there.
 
+With the default `--frontend trajectory` (the dataset's poses), a stereo
+sensor (`--sensor stereo`, or "auto" on a EuRoC layout, whose frames carry
+cam1 and no depth) runs one SGM a keyframe on `--device`: the frontend's
+map points take their depth from it and the mapper's stereo densify reads
+the same disparity. The baseline comes from `--camera-cfg`
+(Stereo.T_c1_c2 or Stereo.b), else from the layout's sensor.yaml files.
+
 `--frontend visual` tracks with the KLT + RANSAC frontend
 (slam/tracking.py) and GT poses hidden, in the sensor mode of `--sensor`
 ("auto" sniffs the dataset: stereo pairs, no depth, an IMU stream); its
@@ -154,7 +161,7 @@ def main(argv=None):
                         help="torch device of the map and the step")
     args = parser.parse_args(argv)
 
-    from legslam_torch.config import RasterizeConfig
+    from legslam_torch.config import MapperParams, RasterizeConfig
     from legslam_torch.data.datasets import open_dataset
     from legslam_torch.mapper.mapper import GaussianMapper
     from legslam_torch.slam.trajectory import TrajectoryFrontend
@@ -208,7 +215,18 @@ def main(argv=None):
                                      getattr(ds, "baseline", 0.0)),
             device=device)
     else:
-        frontend = TrajectoryFrontend(intr, kf_stride=args.kf_stride)
+        stereo = base_sensor == "stereo"
+        if stereo:
+            # the mapper's stereo branch reads the baseline from intr
+            intr["stereo_baseline"] = intr.get(
+                "stereo_baseline", getattr(ds, "baseline", 0.0))
+        smp = mp or MapperParams()
+        frontend = TrajectoryFrontend(
+            intr, kf_stride=args.kf_stride,
+            sensor="stereo" if stereo else "rgbd",
+            stereo_baseline=intr.get("stereo_baseline", 0.0),
+            min_disparity=smp.stereo_min_disparity,
+            num_disparity=smp.stereo_num_disparity, device=device)
     mapper = GaussianMapper(frontend.queue, intr, opt=opt, mp=mp, cfg=cfg,
                             capacity=args.capacity, result_dir=args.out,
                             seed=args.seed, max_per_tile=args.max_per_tile,

@@ -26,6 +26,12 @@ than one rank they run on the mapper's device: the views and the strips in
 turn, and the store whole. With one (the default group, or `group`), the
 views, the strips or the store rows split over the largest rank count
 that divides them, as the JAX mapper sizes its mesh.
+
+Keyframes without a depth image (stereo and monocular packets) train as
+the JAX mapper trains them: build_keyframe gives them an all-zero depth
+pyramid, and the step's L1(depth) term (ops/losses.mapping_loss) is taken
+against it, as against any depth target. No depth target is made from
+the stereo disparity.
 """
 from __future__ import annotations
 
@@ -411,21 +417,30 @@ class GaussianMapper:
         yi = np.clip(kf.kp_pixels[ok, 1].astype(int), 0, h - 1)
         return world, color[yi, xi], pts[ok, 2]
 
+    @runtime.spanned("ingest.stereo")
     def _stereo_inactive_geometry(self, kf: MapKeyframe, packet):
         """Stereo SGM branch (gaussian_mapper.cpp:1302-1405), on the
-        mapper's device."""
-        if packet is None or getattr(packet, "color_right", None) is None:
+        mapper's device: every keypoint with a valid disparity, from the
+        disparity the frontend put in the packet (one SGM a keyframe), or
+        from an SGM of the packet's rectified pair run here when it
+        carries none."""
+        if packet is None:
+            return None, None, None
+        disp = getattr(packet, "disparity", None)
+        if disp is None and getattr(packet, "color_right", None) is None:
             return None, None, None
         from legslam_torch.ops.stereo import stereo_inactive_geo_densify
         baseline = self.intr.get("stereo_baseline", 0.0)
         if baseline <= 0:
             return None, None, None
         pts, cols, ok = stereo_inactive_geo_densify(
-            self._tensor(packet.color), self._tensor(packet.color_right),
+            self._tensor(packet.color),
+            None if disp is not None else self._tensor(packet.color_right),
             self._tensor(kf.kp_pixels), self.intr["fx"], self.intr["fy"],
             self.intr["cx"], self.intr["cy"], baseline,
             num_disp=self.mp.stereo_num_disparity,
-            min_disp=self.mp.stereo_min_disparity)
+            min_disp=self.mp.stereo_min_disparity,
+            disparity=None if disp is None else disp.to(self.device))
         pts, cols, ok = pts.cpu().numpy(), cols.cpu().numpy(), \
             ok.cpu().numpy()
         if not ok.any():

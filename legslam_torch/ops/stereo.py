@@ -24,10 +24,32 @@ paths (rows, forward and reversed) and the two vertical ones (columns,
 forward and reversed) are stacked as independent sequences, the shorter
 ones padded at their END, which leaves every real step's value unchanged,
 so a frame takes max(H, W) - 1 steps of a few tensor ops each.
+
+Who runs SGM: on the default path (slam/trajectory.py TrajectoryFrontend
+in stereo mode) the frontend matches each keyframe's pair once and hands
+the disparity on in its KeyframePacket; the mapper's stereo branch reads
+it from there, as the reference's densify reads the keyframe it was given.
+Non-keyframes run no SGM. The mapper matches a pair itself only for a
+packet that carries none (the visual frontend's, slam/tracking.py, which
+also runs SGM on every frame for its own depth).
+
+Spans (utils/runtime.py): `stereo.sgm` (keyframe, width, height,
+disparities, steps) with `sgm.census`, `sgm.cost`, `sgm.aggregate` and
+`sgm.disparity` inside it.
 """
 from __future__ import annotations
 
 import torch
+
+from legslam_torch.utils import runtime
+
+# the grey weights of the stereo branch (ITU-R BT.601 luma)
+GRAY_WEIGHTS = (0.299, 0.587, 0.114)
+
+
+def to_gray(rgb: torch.Tensor) -> torch.Tensor:
+    """[H, W] grey image of an [H, W, 3] float RGB image, on its device."""
+    return rgb @ torch.tensor(GRAY_WEIGHTS, device=rgb.device)
 
 
 def reproject_depth_pinhole(pixels: torch.Tensor, depths: torch.Tensor,
@@ -187,20 +209,29 @@ def sgm_aggregate(left_gray: torch.Tensor, right_gray: torch.Tensor,
     """The [H, W, D] f32 aggregated SGM cost of a grayscale pair: census,
     Hamming volume, the sum of the four paths. Integer-valued, so exact
     on every device."""
-    cl = census_transform(left_gray.float())
-    cr = census_transform(right_gray.float())
-    cost = _hamming_cost_volume(cl, cr, num_disp)    # [H, W, D]
-    return _aggregate_all(cost, p1, p2)
+    with runtime.span("sgm.census"):
+        cl = census_transform(left_gray.float())
+        cr = census_transform(right_gray.float())
+    with runtime.span("sgm.cost"):
+        cost = _hamming_cost_volume(cl, cr, num_disp)    # [H, W, D]
+    with runtime.span("sgm.aggregate"):
+        return _aggregate_all(cost, p1, p2)
 
 
 def sgm_disparity(left_gray: torch.Tensor, right_gray: torch.Tensor,
                   num_disp: int = 128, min_disp: int = 8,
-                  p1: float = 10.0, p2: float = 120.0) -> torch.Tensor:
+                  p1: float = 10.0, p2: float = 120.0,
+                  keyframe: int | None = None) -> torch.Tensor:
     """SGM disparity for [H, W] grayscale pair; returns [H, W] float32 with
     parabolic subpixel refinement, invalid (<= min_disp or >= num_disp or
-    weak) pixels set to -1 like OpenCV's out-of-range convention."""
-    agg = sgm_aggregate(left_gray, right_gray, num_disp, p1, p2)
-    return disparity_from_aggregate(agg, num_disp, min_disp)
+    weak) pixels set to -1 like OpenCV's out-of-range convention.
+    `keyframe` is the frame id the `stereo.sgm` span records."""
+    h, w = left_gray.shape
+    with runtime.span("stereo.sgm", keyframe=keyframe, width=w, height=h,
+                      disparities=num_disp, steps=max(h, w) - 1):
+        agg = sgm_aggregate(left_gray, right_gray, num_disp, p1, p2)
+        with runtime.span("sgm.disparity"):
+            return disparity_from_aggregate(agg, num_disp, min_disp)
 
 
 def disparity_from_aggregate(agg: torch.Tensor, num_disp: int,
@@ -226,24 +257,42 @@ def stereo_inactive_geo_densify(left_rgb: torch.Tensor,
                                 kp_pixels: torch.Tensor,
                                 fx: float, fy: float, cx: float, cy: float,
                                 baseline: float,
-                                num_disp: int = 128, min_disp: int = 8):
+                                num_disp: int = 128, min_disp: int = 8,
+                                disparity: torch.Tensor | None = None):
     """Stereo branch of increasePcdByKeyframeInactiveGeoDensify
     (gaussian_mapper.cpp:1302-1405): SGM disparity from the rectified pair,
     keep only KEYPOINT pixels whose disparity is in (min_disp, num_disp),
-    back-project z = fx*b/disp, color from the left image.
+    back-project z = fx*b/disp, color from the left image. A `disparity`
+    the frontend already computed for this pair is used as it is, and
+    `right_rgb` is not read.
 
     Returns ([N,3] camera-local points with z=-1 where invalid,
     [N,3] colors, [N] bool valid)."""
-    to_gray = torch.tensor([0.299, 0.587, 0.114], device=left_rgb.device)
-    disp = sgm_disparity(left_rgb @ to_gray, right_rgb @ to_gray,
-                         num_disp=num_disp, min_disp=min_disp)
-    h, w = disp.shape
+    disp = disparity if disparity is not None else sgm_disparity(
+        to_gray(left_rgb), to_gray(right_rgb), num_disp=num_disp,
+        min_disp=min_disp)
+    xi, yi = keypoint_index(kp_pixels, disp.shape)
+    z, ok = keypoint_depth(disp, xi, yi, fx, baseline)
+    pts = reproject_depth_pinhole(kp_pixels, z, fx, fy, cx, cy, valid=ok)
+    cols = left_rgb[yi, xi]
+    return pts, cols, ok
+
+
+def keypoint_index(kp_pixels: torch.Tensor, shape) -> tuple:
+    """(x, y) long pixel indices of [N, 2] keypoints in an image of
+    `shape` (H, W): truncated and clamped to the image."""
+    h, w = shape[:2]
     xi = kp_pixels[:, 0].to(torch.int32).clamp(0, w - 1).long()
     yi = kp_pixels[:, 1].to(torch.int32).clamp(0, h - 1).long()
+    return xi, yi
+
+
+def keypoint_depth(disp: torch.Tensor, xi: torch.Tensor, yi: torch.Tensor,
+                   fx: float, baseline: float) -> tuple:
+    """([N] depth z = fx * b / d, -1 where the disparity under the keypoint
+    is invalid; [N] bool valid)."""
     d = disp[yi, xi]
     ok = d > 0
     z = torch.where(ok, fx * baseline / torch.clamp(d, min=1e-6),
                     torch.full_like(d, -1.0))
-    pts = reproject_depth_pinhole(kp_pixels, z, fx, fy, cx, cy, valid=ok)
-    cols = left_rgb[yi, xi]
-    return pts, cols, ok
+    return z, ok

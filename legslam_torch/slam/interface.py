@@ -44,6 +44,11 @@ class KeyframePacket:
     # rectified right image for STEREO sensors (KeyFrame::imgAuxiliary in
     # stereo mode feeds the SGM densify branch, gaussian_mapper.cpp:1302)
     color_right: Optional[np.ndarray] = None
+    # [H,W] float32 SGM disparity of (color, color_right) on the device
+    # where the frontend computed it (-1 where invalid), so the mapper's
+    # stereo branch does not match the same pair again; None when the
+    # frontend ran no SGM for this keyframe
+    disparity: Optional[torch.Tensor] = None
     # undistorted keypoint pixels + camera-local 3D points (z=-1 when no
     # map point) — KeyFrame::GetKeypointInfo contract (KeyFrame.h:264)
     kp_pixels: Optional[np.ndarray] = None    # [N,2]

@@ -10,6 +10,24 @@ colored sparse map points triangulated at keypoints (MapPoint color mod,
 ORB-SLAM3/src/MapPoint.cc:135-141), keypoint pixel/local-point export
 (KeyFrame::GetKeypointInfo), and LocalMappingBA-style MappingOperations
 pushed to the queue (ORB-SLAM3/src/LocalMapping.cc:149-159).
+
+Sensor modes (the `sensor` the app picks from the dataset):
+  - "rgbd": a keypoint's depth is the depth image's under it.
+  - "stereo": frames carry a rectified right image and no depth. On each
+    keyframe, and only there, one SGM of the grey pair runs on `device`
+    (ops/stereo.sgm_disparity, the weights of the mapper's stereo branch),
+    and a keypoint's depth is z = fx * b / d where its disparity d lies in
+    (min_disparity, num_disparity - 1). ORB-SLAM3 instead matches each
+    left ORB keypoint to the right image's keypoints along its row by
+    descriptor distance, refined by a SAD window search and a parabola
+    (Frame::ComputeStereoMatches), and keeps only those matches; here
+    every keypoint reads the dense disparity, the same one the mapper's
+    densify uses (gaussian_mapper.cpp:1302-1405). The packet carries the
+    right image and that disparity, so the mapper does not match the pair
+    again.
+In both modes every `round(1 / map_point_ratio)`-th keypoint with a depth
+in (min_depth, max_depth) is a map point; the rest are exported with
+z = -1.
 """
 from __future__ import annotations
 
@@ -19,6 +37,7 @@ import numpy as np
 import torch
 
 from legslam_torch.data.datasets import RGBDFrame
+from legslam_torch.ops import stereo as S
 from legslam_torch.slam.interface import (
     KeyframePacket,
     MappingOperation,
@@ -60,7 +79,19 @@ class TrajectoryFrontend:
 
     def __init__(self, intrinsics: dict, kf_stride: int = 8,
                  max_corners: int = 800, min_depth: float = 1e-6,
-                 max_depth: float = 40.0, map_point_ratio: float = 0.25):
+                 max_depth: float = 40.0, map_point_ratio: float = 0.25,
+                 sensor: str = "rgbd", stereo_baseline: float = 0.0,
+                 min_disparity: int = 8, num_disparity: int = 128,
+                 device: str | torch.device = "cpu"):
+        if sensor not in ("rgbd", "stereo"):
+            raise ValueError(f"unsupported sensor {sensor!r}")
+        if sensor == "stereo" and stereo_baseline <= 0:
+            raise ValueError("stereo mode needs a positive stereo_baseline")
+        self.sensor = sensor
+        self.stereo_baseline = stereo_baseline
+        self.min_disparity = min_disparity
+        self.num_disparity = num_disparity
+        self.device = torch.device(device)   # where SGM runs (stereo)
         self.queue = OperationQueue()
         self.intr = intrinsics
         self.kf_stride = kf_stride
@@ -90,10 +121,14 @@ class TrajectoryFrontend:
         cx, cy = self.intr["cx"], self.intr["cy"]
         pts_local = np.full((kp.shape[0], 3), -1.0, np.float32)
         colors = np.zeros((kp.shape[0], 3), np.float32)
-        if frame.depth is not None and kp.shape[0]:
-            xi = np.clip(kp[:, 0].astype(int), 0, frame.color.shape[1] - 1)
-            yi = np.clip(kp[:, 1].astype(int), 0, frame.color.shape[0] - 1)
+        xi = np.clip(kp[:, 0].astype(int), 0, frame.color.shape[1] - 1)
+        yi = np.clip(kp[:, 1].astype(int), 0, frame.color.shape[0] - 1)
+        disparity = d = None
+        if self.sensor == "stereo":
+            disparity, d = self._stereo_depth(frame, kp)
+        elif frame.depth is not None:
             d = frame.depth[yi, xi]
+        if d is not None and kp.shape[0]:
             ok = (d > self.min_depth) & (d < self.max_depth)
             # promote only a subset to map points (ORB-SLAM triangulates
             # sparsely); the remainder are exported with z = -1 for the
@@ -112,6 +147,8 @@ class TrajectoryFrontend:
         packet = KeyframePacket(
             fid=frame.index, timestamp=frame.timestamp, R=R, t=t,
             color=frame.color, depth=frame.depth, lf_image=lf_image,
+            color_right=frame.color_right if self.sensor == "stereo"
+            else None, disparity=disparity,
             kp_pixels=kp, kp_points_local=pts_local)
 
         # sparse colored world points for this KF (MapPoint equivalents)
@@ -131,6 +168,25 @@ class TrajectoryFrontend:
             points_xyz=pts_xyz, points_color=pts_col))
         self._n_keyframes += 1
         return packet
+
+    @runtime.spanned("track.stereo")
+    def _stereo_depth(self, frame: RGBDFrame, kp: np.ndarray):
+        """One SGM of the keyframe's rectified pair on the device: (the [H,
+        W] disparity, left on the device; [N] float32 depth of each
+        keypoint, -1 where its disparity is invalid)."""
+        if frame.color_right is None:
+            raise ValueError("stereo mode needs the frame's color_right")
+        left = torch.as_tensor(frame.color, device=self.device)
+        right = torch.as_tensor(frame.color_right, device=self.device)
+        disp = S.sgm_disparity(S.to_gray(left), S.to_gray(right),
+                               num_disp=self.num_disparity,
+                               min_disp=self.min_disparity,
+                               keyframe=frame.index)
+        xi, yi = S.keypoint_index(torch.as_tensor(kp, device=self.device),
+                                  disp.shape)
+        z, _ = S.keypoint_depth(disp, xi, yi, float(self.intr["fx"]),
+                                self.stereo_baseline)
+        return disp, z.cpu().numpy()
 
     def finish(self) -> None:
         self.queue.shutdown()
