@@ -86,8 +86,10 @@ Phases (each prints one or more lines; any failure exits non-zero):
      launches, the PSNR and gt_lf gates);
      [viewer] the live viewer on that mapper and tracker (/state, POST
      /params, /render against render_from_pose, the /slam_frame
-     keypoints); [stereo] SGM at 752x480 with 128 disparities, card
-     against CPU, timed, then a 10-frame rectified pair sequence through
+     keypoints); [stereo] SGM at 752x480 with 128 disparities, the plain
+     twin on the card against the CPU, the kernel route (csrc/sgm.cu)
+     against the twin on the card bit for bit, both timed, the kernels'
+     launches a call, then a 10-frame rectified pair sequence through
      the stereo tracker and a stereo mapper; [mono] 24 frames at 640x480
      through the monocular tracker and a monocular mapper;
   9. the last slice (see bucket_phase, strips_phase, multiview_phase,
@@ -2208,10 +2210,14 @@ def right_view(color, depth, fx, baseline):
 
 def stereo_phase(dev, card, fails, out_dir):
     """Phase 8 [stereo]: SGM (ops/stereo.py) at 752x480 with 128
-    disparities on a seeded textured pair, card against CPU (the
-    aggregated costs are integers: equal everywhere, so are the integer
-    disparities; the subpixel term within STEREO_SUBPIX_TOL), its ms a
-    frame by CUDA events and the host's enqueue time; then a 10-frame
+    disparities on a seeded textured pair: the plain twin on the card
+    against the CPU (the aggregated costs are integers: equal everywhere,
+    so are the integer disparities; the subpixel term within
+    STEREO_SUBPIX_TOL); the kernel route (sgm_disparity on the card,
+    csrc/sgm.cu) against the twin on the card, integer and subpixel
+    disparities equal bit for bit; each route's ms a frame by CUDA events
+    and the host's enqueue time, and the kernels' launches a call; then a
+    10-frame
     rectified pair sequence through the stereo tracker (SGM on the card)
     and a mapper with sensor_type="stereo", whose inactive-geometry
     densify runs SGM on each keyframe's pair."""
@@ -2219,6 +2225,7 @@ def stereo_phase(dev, card, fails, out_dir):
     from legslam_torch.data.synthetic import SyntheticDataset
     from legslam_torch.mapper.mapper import GaussianMapper
     from legslam_torch.ops import stereo as S
+    from legslam_torch.ops.cuda import sgm as sgm_kernels
     from legslam_torch.slam import tracking as T
     t0 = time.perf_counter()
     left, right = textured_pair(STEREO_SHAPE, 40, seed=0)
@@ -2234,17 +2241,38 @@ def stereo_phase(dev, card, fails, out_dir):
     valid = float((disp_card > 0).float().mean())
     med = float(disp_card[disp_card > 0].median()) if valid else -1.0
     del agg_card, agg_cpu
+    # the kernel route against the twin on the card, bit for bit
+    n0 = sgm_kernels.sgm.launches
+    disp_kernel = S.sgm_disparity(lc, rc, STEREO_DISP).cpu()
+    kernel_launches = sgm_kernels.sgm.launches - n0
+    kernel_int = torch.equal(disp_kernel > 0, disp_card > 0) and \
+        torch.equal(disp_kernel.round(), disp_card.round())
+    kernel_bits = torch.equal(disp_kernel.view(torch.int32),
+                              disp_card.view(torch.int32))
     ms, host_ms = per_call_ms(lambda: S.sgm_disparity(lc, rc, STEREO_DISP),
-                              10, warmup=2)
+                              20, warmup=3)
+    twin_ms, twin_host_ms = per_call_ms(
+        lambda: S.disparity_from_aggregate(
+            S.sgm_aggregate(lc, rc, STEREO_DISP), STEREO_DISP, 8), 3,
+        warmup=1)
     h, w = STEREO_SHAPE
     steps = max(h, w) - 1
     print(f"[stereo] SGM {w}x{h}, {STEREO_DISP} disparities, textured pair "
-          f"at disparity 40: card vs CPU aggregated costs equal {agg_equal},"
-          f" integer disparities equal {int_equal}, subpixel max abs err "
-          f"{sub_err:.3g} (tol {STEREO_SUBPIX_TOL}); valid {valid:.2%}, "
-          f"median disparity {med:.3f}; {ms:.3f} ms a frame (CUDA events), "
-          f"host enqueue {host_ms:.3f} ms; the aggregation scan runs {steps}"
-          f" steps of {2 * h + 2 * w} sequences x {STEREO_DISP} [{card}]")
+          f"at disparity 40: twin card vs CPU aggregated costs equal "
+          f"{agg_equal}, integer disparities equal {int_equal}, subpixel "
+          f"max abs err {sub_err:.3g} (tol {STEREO_SUBPIX_TOL}); valid "
+          f"{valid:.2%}, median disparity {med:.3f}; kernel route vs twin on "
+          f"the card: integer disparities equal {kernel_int}, bit for bit "
+          f"{kernel_bits}; kernels {ms:.4f} ms a frame (CUDA events), host "
+          f"enqueue {host_ms:.3f} ms, {kernel_launches} launches a call; "
+          f"twin {twin_ms:.2f} ms (CUDA events), host {twin_host_ms:.2f} ms, "
+          f"its scan {steps} steps of {2 * h + 2 * w} sequences x "
+          f"{STEREO_DISP} [{card}]")
+    if not kernel_bits:
+        fails.append("stereo: the SGM kernels' disparity differs from the "
+                     "twin's")
+    if not 1 <= kernel_launches <= 6:
+        fails.append(f"stereo: {kernel_launches} SGM kernel launches a call")
     if not agg_equal:
         fails.append("stereo: card and CPU SGM costs differ")
     if not int_equal:
@@ -4765,7 +4793,7 @@ def evaluation_phase(dev, card, fails, out_dir, enc):
 
 REPO = Path(__file__).resolve().parent
 DOCKERFILE = REPO / "Dockerfile.torch"
-CUDA_KERNELS = ("composite_fwd", "composite_bwd", "sort", "prologue")
+CUDA_KERNELS = ("composite_fwd", "composite_bwd", "sort", "prologue", "sgm")
 PIP = ("-m", "pip", "--disable-pip-version-check", "--no-cache-dir",
        "--quiet")
 
@@ -5058,6 +5086,12 @@ def build_phase():
             elif n == "prologue":
                 form = "bwd" if "bwd_kernel" in line else "fwd"
                 print(f"[build] prologue {form}: {tail}")
+            elif n == "sgm" and ("census" in line or "IhLi4E" in line):
+                # the cell's instantiations: 8-bit paths, 4 disparities a
+                # lane (128)
+                form = next(k for k in ("census", "aggregate", "winner")
+                            if k in line)
+                print(f"[build] sgm {form}: {tail}")
             elif n == "sort":
                 form = "kv" if "ILb1E" in line else "keys"
                 if "histogram" in line:

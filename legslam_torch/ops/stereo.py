@@ -18,12 +18,18 @@ JAX uint32 census and lax.population_count. The costs and penalties are
 integers, so the f32 aggregation is exact and the integer disparities
 equal JAX's; only the parabolic subpixel term may differ by rounding.
 
-The aggregation is a sequential scan over the image axis. Here it is one
-Python loop that advances all four paths at once: the two horizontal
-paths (rows, forward and reversed) and the two vertical ones (columns,
-forward and reversed) are stacked as independent sequences, the shorter
-ones padded at their END, which leaves every real step's value unchanged,
-so a frame takes max(H, W) - 1 steps of a few tensor ops each.
+Two routes, chosen by device. CUDA tensors take the kernel route
+(ops/cuda/sgm.py, legslam_torch/csrc/sgm.cu): census, the four path scans
+with the Hamming cost computed on the fly, and winner-take-all, in three
+launches, a warp a scanline; its disparity equals the plain version's bit
+for bit. CPU tensors take the plain version, the twin the tests hold the
+kernels to (sgm_aggregate, disparity_from_aggregate). Its aggregation is
+a sequential scan over the image axis, one Python loop that advances all
+four paths at once: the two horizontal paths (rows, forward and
+reversed) and the two vertical ones (columns, forward and reversed) are
+stacked as independent sequences, the shorter ones padded at their END,
+which leaves every real step's value unchanged, so a frame takes
+max(H, W) - 1 steps of a few tensor ops each. Other devices raise.
 
 Who runs SGM: on the default path (slam/trajectory.py TrajectoryFrontend
 in stereo mode) the frontend matches each keyframe's pair once and hands
@@ -35,12 +41,14 @@ also runs SGM on every frame for its own depth).
 
 Spans (utils/runtime.py): `stereo.sgm` (keyframe, width, height,
 disparities, steps) with `sgm.census`, `sgm.cost`, `sgm.aggregate` and
-`sgm.disparity` inside it.
+`sgm.disparity` inside it; the kernel route has no `sgm.cost` (the cost is
+computed inside the path scans).
 """
 from __future__ import annotations
 
 import torch
 
+from legslam_torch.ops.cuda import sgm as sgm_kernels
 from legslam_torch.utils import runtime
 
 # the grey weights of the stereo branch (ITU-R BT.601 luma)
@@ -225,10 +233,15 @@ def sgm_disparity(left_gray: torch.Tensor, right_gray: torch.Tensor,
     """SGM disparity for [H, W] grayscale pair; returns [H, W] float32 with
     parabolic subpixel refinement, invalid (<= min_disp or >= num_disp or
     weak) pixels set to -1 like OpenCV's out-of-range convention.
-    `keyframe` is the frame id the `stereo.sgm` span records."""
+    `keyframe` is the frame id the `stereo.sgm` span records. CUDA
+    tensors take the kernels, CPU tensors the plain version (module
+    docstring)."""
     h, w = left_gray.shape
     with runtime.span("stereo.sgm", keyframe=keyframe, width=w, height=h,
                       disparities=num_disp, steps=max(h, w) - 1):
+        if left_gray.device.type != "cpu":
+            return sgm_kernels.sgm(left_gray, right_gray, num_disp,
+                                   min_disp, p1, p2)
         agg = sgm_aggregate(left_gray, right_gray, num_disp, p1, p2)
         with runtime.span("sgm.disparity"):
             return disparity_from_aggregate(agg, num_disp, min_disp)
