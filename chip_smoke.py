@@ -329,8 +329,7 @@ def make_cfg(max_pairs, mm_dtype, backend="cuda"):
     from legslam_torch.config import RasterizeConfig
     return RasterizeConfig(tile_h=16, tile_w=128, max_span_x=4, max_span_y=8,
                            chunk=256, tile_batch=16, backend=backend,
-                           max_pairs=max_pairs, mm_dtype=mm_dtype,
-                           power_mode="sep3")
+                           max_pairs=max_pairs, mm_dtype=mm_dtype)
 
 
 class StepLoop:

@@ -158,18 +158,17 @@ class MapperParams:
 class RasterizeConfig:
     """Static configuration of the tile rasterizer.
 
-    backend: "torch" is the reference compositor written in plain PyTorch
-      ops with autograd (the counterpart of legslam_tpu's "xla" backend);
-      "cuda" is the hand-written forward and backward compositing kernels
-      (the counterpart of "pallas"). On CPU tensors the "cuda" backend
-      runs the kernels' plain PyTorch versions.
+    backend: the compositor. "torch" is the reference compositor written
+      in plain PyTorch ops with autograd (the counterpart of legslam_tpu's
+      "xla" backend); "cuda" is the hand-written forward and backward
+      compositing kernels (the counterpart of "pallas"). On CPU tensors
+      the "cuda" backend runs the kernels' plain PyTorch versions. Under
+      either backend the render prologue (projection, EWA conic, radius,
+      SH colour, the feature matrix: ops/cuda/prologue.py) goes by the
+      device: CUDA tensors take its kernel pair, with a hand-written
+      backward, and CPU tensors its plain twin.
     mm_dtype: storage type of the gathered pair features read by the
       kernels, "float32" or "bfloat16". Accumulation is always float32.
-    power_mode: kept for configuration parity with legslam_tpu, where it
-      only chose how the TPU evaluated the same quadratic exponent
-      (legslam_tpu/ops/pallas/composite.py:94-130). The port evaluates the
-      exponent exactly, per element, as the "vpu" form does, whatever the
-      value.
     """
 
     tile_h: int = TILE_H
@@ -184,7 +183,6 @@ class RasterizeConfig:
     backend: str = "torch"
     # cap of gathered pair rows for the "cuda" backend
     max_pairs: int = 1 << 20
-    power_mode: str = "vpu"
     mm_dtype: str = "float32"
     # sort binning's depth order and pair keys with the hand-written
     # radix sort kernels (ops/cuda/sort.py), the counterpart of

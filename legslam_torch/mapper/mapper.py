@@ -13,8 +13,9 @@ Counterpart of legslam_tpu/mapper/mapper.py. It follows the reference's
   Phase 3  tail optimization after SLAM shutdown, then artifact dump.
 
 The device work is the mapping step (mapper/train_step.py), the cached
-binning with its termination-aware trims (ops/binning.py) and the episodic
-store surgery (models/gaussians.py); the Python here is scheduling. The
+binning with its termination-aware trims (ops/binning.py; the cache's
+policy is mapper/binning_cache.py) and the episodic store surgery
+(models/gaussians.py); the Python here is scheduling. The
 state, keyframe tensors and random draws live on `device` ("cuda" unless
 the caller asks for the CPU).
 
@@ -52,11 +53,11 @@ from legslam_torch.config import (
     OptimizationParams,
     RasterizeConfig,
 )
+from legslam_torch.mapper.binning_cache import BinningCache
 from legslam_torch.mapper.keyframe import MapKeyframe, build_keyframe
 from legslam_torch.mapper.train_step import train_step
 from legslam_torch.models import gaussians as G
 from legslam_torch.ops import losses
-from legslam_torch.ops.binning import trim_binning
 from legslam_torch.ops.rasterize import compute_binning, rasterize
 from legslam_torch.slam.interface import MappingOperation, OpKind
 from legslam_torch.utils import ply, runtime
@@ -117,11 +118,6 @@ class GaussianMapper:
                  seed: int = 0,
                  include_lang_feat: bool = True,
                  binning_refresh_interval: int = 1,
-                 binning_cache_entries: int = 16,
-                 binning_trim: bool = True,
-                 binning_trim_fresh: bool = True,
-                 binning_keep_on_ingest: bool = True,
-                 capacity_ladder: bool = True,
                  sensor_type: str = "rgbd",
                  n_views: int = 1,
                  spatial_strips: int = 1,
@@ -157,15 +153,13 @@ class GaussianMapper:
         # online store (~1-10k points) does not pay full-capacity
         # P-bound step costs and full max_pairs sort buffers. One-view,
         # whole-store path only (the others keep `capacity`).
-        self.capacity_ladder = capacity_ladder and n_views == 1 and \
-            spatial_strips == 1 and not shard_store
+        self.capacity_ladder = n_views == 1 and spatial_strips == 1 and \
+            not shard_store
         self._approx_valid = 0
         self._base_max_pairs = self.cfg.max_pairs
         self._pairs_floor = 0   # overflow-escalated max_pairs floor
         # (iteration, [changes]) log of overflow-ladder escalations
         self.overflow_escalations: list[tuple[int, list[str]]] = []
-        # binnings computed afresh (cache fills)
-        self.fresh_binnings = 0
         self.result_dir = result_dir
         self.max_per_tile = max_per_tile
         self.include_lang_feat = include_lang_feat
@@ -197,31 +191,8 @@ class GaussianMapper:
         self.big_points_on = False
         self.loss_sync_interval = 10
         self._last_aux = None
-        # per-(kf, level) tile-binning cache: the sort-dominated half of
-        # the step depends only on geometry, which drifts slowly between
-        # uses of one keyframe. interval=1 recomputes every step (exact
-        # reference semantics); >1 reuses an entry that many times and
-        # drops it on store surgery (densify/prune/reset/loop-closure) or
-        # an escalation. Bounded LRU.
-        self.binning_refresh_interval = binning_refresh_interval
-        self.binning_cache_entries = binning_cache_entries
-        self._binning_cache: dict = {}
-        # termination-aware trim of cached binnings (ops/binning.py
-        # trim_binning): the refresh step emits the forward kernel's
-        # per-tile watermark, and pairs past it are compacted away before
-        # the reuse steps. "cuda" backend only.
-        self.binning_trim = binning_trim
-        # pure point-add surgery (ingest / inactive-geo densify) leaves
-        # cached binnings valid but stale: existing slots are untouched,
-        # so a cached binning only misses the new points until its refresh
-        self.binning_keep_on_ingest = binning_keep_on_ingest
-        self._binning_fresh = False
-        # also pre-trim the refresh step at the view's previous watermark
-        # (+1 slack chunk); every (trim_fresh_max_age + 1)-th refresh of a
-        # key runs untrimmed to re-measure in full
-        self.binning_trim_fresh = binning_trim_fresh
-        self.trim_fresh_max_age = 3
-        self._kfin_cache: dict = {}
+        # the per-(kf, level) tile-binning cache and its trims
+        self.binning_cache = BinningCache(binning_refresh_interval)
 
     def _setup_groups(self, group, capacity: int) -> None:
         """The device-count logic of legslam_tpu/mapper/mapper.py:250-281
@@ -482,8 +453,9 @@ class GaussianMapper:
             point_valid=pk[:, 6] > 0.5, max_log_scale=pk[:, 7])
         self._approx_valid = min(self._approx_valid + k,
                                  self.state.capacity)
-        if not (self.binning_keep_on_ingest and
-                self.binning_refresh_interval > 1):
+        # pure point-add leaves cached binnings valid but stale (existing
+        # slots are untouched): they miss the new points until a refresh
+        if self.binning_cache.refresh_interval <= 1:
             self._invalidate_binning()
 
     def _ingest_smax(self, z: np.ndarray | None) -> np.ndarray | None:
@@ -684,23 +656,12 @@ class GaussianMapper:
         return kf
 
     def _invalidate_binning(self) -> None:
-        self._binning_cache.clear()
-        self._kfin_cache.clear()
+        self.binning_cache.invalidate()
 
-    def _cached(self, key, compute, uses: Optional[int] = None):
-        """Refresh-counted LRU entry in the binning cache: reuse `uses`
-        times (default binning_refresh_interval) before recomputing."""
-        entry = self._binning_cache.pop(key, None)
-        if entry is not None and entry[0] > 0:
-            uses_left, value = entry
-            self._binning_cache[key] = (uses_left - 1, value)
-            return value
-        value = compute()
-        n = self.binning_refresh_interval if uses is None else uses
-        self._binning_cache[key] = (n - 1, value)
-        while len(self._binning_cache) > self.binning_cache_entries:
-            self._binning_cache.pop(next(iter(self._binning_cache)))
-        return value
+    @property
+    def fresh_binnings(self) -> int:
+        """Binnings computed afresh (cache fills)."""
+        return self.binning_cache.fills
 
     def binning_for(self, view: CameraView, cfg: RasterizeConfig):
         """(Binning, overflow) of the current state from `view` under
@@ -713,48 +674,26 @@ class GaussianMapper:
             max_per_tile=self.max_per_tile,
             opacity=torch.sigmoid(st.params.opacity[:, 0]))
 
-    def _get_binning(self, kf: MapKeyframe, lvl: int, view) -> Optional[tuple]:
-        """Cached (binning, overflow) for (kf, level), refreshed every
-        `binning_refresh_interval` uses; None when caching is off.
-        Sets `_binning_fresh` when this call recomputed the entry (the
-        caller may then trim it from the step's kfin watermark)."""
-        if self.binning_refresh_interval <= 1:
-            self._binning_fresh = False
-            return None
-        entry = self._binning_cache.get((kf.fid, lvl))
-        self._binning_fresh = entry is None or entry[0] <= 0
+    def _fill_binning(self, view):
+        with runtime.span("map.binning"):
+            return self.binning_for(view, self.cfg)
 
-        def compute():
-            self.fresh_binnings += 1
-            with runtime.span("map.binning"):
-                return self.binning_for(view, self.cfg)
-
-        return self._cached((kf.fid, lvl), compute)
-
-    def _get_binning_spatial(self, kf, lvl: int, view, layout, cys
-                             ) -> Optional[list]:
-        """Cached per-strip binnings of this rank's strips for (kf,
-        level), with _get_binning's refresh and invalidation policy."""
-        if self.binning_refresh_interval <= 1:
-            return None
+    def _fill_binning_spatial(self, view, layout, crop_ys):
+        """The per-strip binnings of this rank's strips."""
         from legslam_torch.parallel import spatial
-        mine = [cys[i] for i in spatial.local_strips(len(cys), self._group)]
-
-        def compute():
-            self.fresh_binnings += 1
-            st = self.state
-            with runtime.span("map.binning"):
-                return spatial.spatial_compute_binning(
-                    st.params.xyz, torch.exp(st.params.scaling),
-                    st.params.rotation, st.valid, view.world_view,
-                    view.full_proj, view.tan_fovx, view.tan_fovy, mine,
-                    width=view.width, height=view.height,
-                    h_local=layout.h_local, cfg=self.cfg,
-                    max_per_tile=self.max_per_tile,
-                    opacity=torch.sigmoid(st.params.opacity[:, 0]),
-                    watermark_hint=self._watermark())
-
-        return self._cached((kf.fid, lvl, "spatial"), compute)
+        mine = [crop_ys[i]
+                for i in spatial.local_strips(len(crop_ys), self._group)]
+        st = self.state
+        with runtime.span("map.binning"):
+            return spatial.spatial_compute_binning(
+                st.params.xyz, torch.exp(st.params.scaling),
+                st.params.rotation, st.valid, view.world_view,
+                view.full_proj, view.tan_fovx, view.tan_fovy, mine,
+                width=view.width, height=view.height,
+                h_local=layout.h_local, cfg=self.cfg,
+                max_per_tile=self.max_per_tile,
+                opacity=torch.sigmoid(st.params.opacity[:, 0]),
+                watermark_hint=self._watermark())
 
     def _spatial_step(self, kf, lvl: int, view, gt_lf, include_lf: bool,
                       lr_step: int):
@@ -777,9 +716,11 @@ class GaussianMapper:
                     (kf.gt_color[lvl], kf.gt_depth[lvl], kf.mask[lvl])]
             return spatial.strip_offsets(layout), lf, pads
 
-        cys, lf, pads = self._cached((kf.fid, lvl, "spatial_gt"),
-                                     compute_gt, uses=1 << 30)
-        binning = self._get_binning_spatial(kf, lvl, view, layout, cys)
+        cys, lf, pads = self.binning_cache.keep((kf.fid, lvl, "spatial_gt"),
+                                                compute_gt)
+        binning, _ = self.binning_cache.get(
+            (kf.fid, lvl, "spatial"),
+            lambda: self._fill_binning_spatial(view, layout, cys))
         if self._shard_group is None:
             self._replicate(self._group)
         self._full = None
@@ -797,25 +738,56 @@ class GaussianMapper:
     def train_iteration(self) -> Optional[float]:
         """One trainForOneIteration (gaussian_mapper.cpp:624-798): a tick
         of n_views keyframes, else one keyframe's step (whole or in
-        strips); a "map_iter" span on every path."""
+        strips); a "map_iter" span on every path. Then the periodic loss
+        fetch, the overflow response (one view), densification and the
+        capacity ladder (the one-view, whole-store path)."""
         if self.state is None:
             return None
         with runtime.span("map_iter") as sp:
+            kfs = []
+            for _ in range(self.n_views):
+                kf = self._pick_keyframe()
+                if kf is None:
+                    break
+                kfs.append(kf)
+            if not kfs:
+                return None
+            self.iteration += 1
+            opt = self.opt
+            # SH degree ramp (+1 / sh_degree_interval, gm.cpp:663)
+            if self.iteration % opt.sh_degree_interval == 0 and \
+                    self.active_sh_degree < opt.sh_degree:
+                self.active_sh_degree += 1
             if self.n_views > 1:
-                return self._train_iteration_batched()
-            return self._train_iteration_one(sp)
+                aux = self._train_views(kfs)
+            else:
+                aux = self._train_one(kfs[0], sp)
+            # fetch the loss only periodically: each fetch waits for the
+            # card
+            self._last_aux = aux
+            loss = None
+            if self.iteration % self.loss_sync_interval == 0:
+                with runtime.span("map.loss_sync"):
+                    loss, dropped, rendered, nvalid = aux.sync3.tolist()
+                self._approx_valid = int(nvalid)
+                self.ema_loss = 0.6 * loss + 0.4 * self.ema_loss \
+                    if self.iteration > 1 else loss
+                # overflow guardrail: the reference never drops pairs
+                # (rasterize_points.cu:29-35 resizes its buffers to
+                # num_rendered); when a static cap clips > 0.1% the
+                # mapper escalates that cap to its next rung, and only
+                # warns once nothing is left to escalate
+                dropped = int(dropped)
+                rendered = max(int(rendered), 1)
+                if self.n_views == 1 and dropped > 0 and \
+                        dropped / rendered > 1e-3:
+                    self._respond_to_overflow(dropped, rendered)
+            self._post_step_densify()
+            self._maybe_grow_capacity()
+            return loss
 
-    def _train_iteration_one(self, sp) -> Optional[float]:
-        kf = self._pick_keyframe()
-        if kf is None:
-            return None
-        self.iteration += 1
-        opt = self.opt
-        # SH degree ramp (+1 / sh_degree_interval, gaussian_mapper.cpp:663)
-        if self.iteration % opt.sh_degree_interval == 0 and \
-                self.active_sh_degree < opt.sh_degree:
-            self.active_sh_degree += 1
-
+    def _train_one(self, kf: MapKeyframe, sp):
+        """One keyframe's step, whole or in strips; returns its StepAux."""
         lvl = min(kf.pick_pyramid_level(), len(kf.views) - 1)
         sp.set(iteration=self.iteration, keyframe=kf.fid, level=lvl)
         view = kf.views[lvl]
@@ -832,28 +804,12 @@ class GaussianMapper:
                 gt_lf = upsample_lf(gt_lf, view.height, view.width)
             self._state, aux = self._spatial_step(kf, lvl, view, gt_lf,
                                                   include_lf, lr_step)
-            return self._after_step(aux)
+            return aux
 
-        binning = self._get_binning(kf, lvl, view)
         cfg = self.cfg
-        # trims and the kfin cache: the flat layout's watermark only
-        emit = bool(self.binning_trim and self._binning_fresh
-                    and binning is not None
-                    and self.binning_refresh_interval > 1
-                    and cfg.backend == "cuda" and cfg.n_buckets == 1)
         key = (kf.fid, lvl)
-        if emit and self.binning_trim_fresh:
-            # pre-trim the refresh step at the view's previous watermark
-            # (+1 extra slack chunk of headroom); every (max_age+1)-th
-            # refresh re-measures untrimmed
-            kent = self._kfin_cache.get(key)
-            if kent is not None and kent[0] < self.trim_fresh_max_age:
-                kent[0] += 1
-                binning = (trim_binning(binning[0], kent[1], cfg.max_pairs,
-                                        cfg.chunk, slack_chunks=2),
-                           binning[1])
-            else:
-                self._kfin_cache.pop(key, None)
+        binning, emit = self.binning_cache.get(
+            key, lambda: self._fill_binning(view), cfg)
         # a sharded store steps on this rank's rows (self._state)
         self._full = None
         self._state, aux = train_step(
@@ -861,51 +817,13 @@ class GaussianMapper:
             view.tan_fovx, view.tan_fovy, kf.gt_color[lvl], gt_lf,
             kf.gt_depth[lvl], kf.mask[lvl], self.bg, float(lr_step),
             float(self.cameras_extent), width=view.width, height=view.height,
-            active_sh_degree=self.active_sh_degree, opt=opt, cfg=cfg,
+            active_sh_degree=self.active_sh_degree, opt=self.opt, cfg=cfg,
             include_lang_feat=include_lf, max_per_tile=self.max_per_tile,
             binning=binning, emit_kfin=emit, gather_group=self._shard_group,
             watermark_hint=self._watermark())
         if emit and aux.kfin is not None:
-            # trim the just-cached binning at the refresh step's
-            # termination watermark for the remaining reuse steps
-            ent = self._binning_cache.get(key)
-            if ent is not None:
-                trimmed = trim_binning(binning[0], aux.kfin, cfg.max_pairs,
-                                       cfg.chunk)
-                self._binning_cache[key] = (ent[0], (trimmed, binning[1]))
-            if self.binning_trim_fresh:
-                # age stayed incremented if this refresh was pre-trimmed;
-                # a full re-measure re-enters at age 0
-                age = self._kfin_cache.get(key, [0, None])[0]
-                self._kfin_cache[key] = [age, aux.kfin]
-                while len(self._kfin_cache) > self.binning_cache_entries:
-                    self._kfin_cache.pop(next(iter(self._kfin_cache)))
-        return self._after_step(aux)
-
-    def _after_step(self, aux) -> Optional[float]:
-        """The one-view tick's tail: the periodic loss fetch and overflow
-        response, densification and the capacity ladder."""
-        # fetch the loss only periodically: each fetch waits for the card
-        self._last_aux = aux
-        loss = None
-        if self.iteration % self.loss_sync_interval == 0:
-            with runtime.span("map.loss_sync"):
-                loss, dropped, rendered, nvalid = aux.sync3.tolist()
-            self._approx_valid = int(nvalid)
-            self.ema_loss = 0.6 * loss + 0.4 * self.ema_loss \
-                if self.iteration > 1 else loss
-            # overflow guardrail: the reference never drops pairs
-            # (rasterize_points.cu:29-35 resizes its buffers to
-            # num_rendered); when a static cap clips > 0.1% the mapper
-            # escalates that cap to its next rung, and only warns once
-            # nothing is left to escalate
-            dropped = int(dropped)
-            rendered = max(int(rendered), 1)
-            if dropped > 0 and dropped / rendered > 1e-3:
-                self._respond_to_overflow(dropped, rendered)
-        self._post_step_densify()
-        self._maybe_grow_capacity()
-        return loss
+            self.binning_cache.trimmed(key, binning, aux.kfin, cfg)
+        return aux
 
     def _respond_to_overflow(self, dropped: int, rendered: int) -> None:
         """Adaptive response to pair overflow (the reference never drops
@@ -1013,33 +931,20 @@ class GaussianMapper:
                 self.state = G.reset_opacity(self.state)
                 self._invalidate_binning()
 
-    def _train_iteration_batched(self) -> Optional[float]:
-        """One tick of n_views keyframes through
+    def _train_views(self, kfs: list):
+        """One tick of the keyframes `kfs` (n_views or fewer) through
         parallel/sharded.batched_train_step (its strip form with
         spatial_strips > 1): the per-view masked loss and per-view densify
         statistics of the gaussian_mapper.cpp:624-798 loop, one Adam
         update on the mean-of-views gradient. A short batch is padded by
         reusing its keyframes; the first keyframe's pyramid pick sets the
-        one level of the tick."""
+        one level of the tick. Returns the StepAux."""
         from legslam_torch.mapper.train_step import upsample_lf
         from legslam_torch.parallel import sharded, spatial
-        kfs = []
-        for _ in range(self.n_views):
-            kf = self._pick_keyframe()
-            if kf is None:
-                break
-            kfs.append(kf)
-        if not kfs:
-            return None
         n0 = len(kfs)
         while len(kfs) < self.n_views:     # pad short batches by reuse
             kfs.append(kfs[len(kfs) % n0])
-        self.iteration += 1
         opt = self.opt
-        if self.iteration % opt.sh_degree_interval == 0 and \
-                self.active_sh_degree < opt.sh_degree:
-            self.active_sh_degree += 1
-
         lvl = min(kfs[0].pick_pyramid_level(),
                   min(len(kf.views) - 1 for kf in kfs))
         views = [kf.views[lvl] for kf in kfs]
@@ -1080,15 +985,7 @@ class GaussianMapper:
                 active_sh_degree=self.active_sh_degree, opt=opt,
                 cfg=self.cfg, include_lang_feat=include_lf,
                 max_per_tile=self.max_per_tile, group=self._view_group)
-        self._last_aux = aux
-        loss = None
-        if self.iteration % self.loss_sync_interval == 0:
-            with runtime.span("map.loss_sync"):
-                loss = float(aux.loss)
-            self.ema_loss = 0.6 * loss + 0.4 * self.ema_loss \
-                if self.iteration > 1 else loss
-        self._post_step_densify()
-        return loss
+        return aux
 
     def run(self, max_iterations: Optional[int] = None,
             tail_iterations: Optional[int] = None) -> None:

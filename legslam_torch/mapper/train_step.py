@@ -57,6 +57,65 @@ def make_lrs(opt: OptimizationParams, spatial_lr_scale,
         scaling=opt.scaling_lr, rotation=opt.rotation_lr)
 
 
+def leaves_of(state: G.GaussianState) -> dict[str, torch.Tensor]:
+    """The parameter groups as fresh autograd leaves, in GROUPS order."""
+    return {name: t.detach().requires_grad_(True)
+            for name, t in state.params.as_dict().items()}
+
+
+def activated(p: dict[str, torch.Tensor]) -> tuple:
+    """render_arrays' first six arguments from the parameter groups: the
+    means, the SH coefficients (f_dc then f_rest), the LF features,
+    sigmoid(opacity), exp(scaling) and the rotations."""
+    return (p["xyz"], torch.cat([p["f_dc"], p["f_rest"]], dim=1),
+            p["lang_feat"], torch.sigmoid(p["opacity"][:, 0]),
+            torch.exp(p["scaling"]), p["rotation"])
+
+
+def screen_grads(offset_grad: torch.Tensor, width: int, height: int,
+                 views: int = 1) -> torch.Tensor:
+    """The mean2D offsets' gradient [..., 2] in the reference's NDC
+    convention (backward.cu ddelx_dx / ddely_dy: x 0.5*W, y 0.5*H), times
+    `views` to undo a loss mean over that many views."""
+    return torch.stack([offset_grad[..., 0] * (views * 0.5 * width),
+                        offset_grad[..., 1] * (views * 0.5 * height)],
+                       dim=-1)
+
+
+def view_increments(state: G.GaussianState, offset_grad: torch.Tensor,
+                    radii: torch.Tensor, width: int, height: int,
+                    n_slabs: int = 0, watermark_hint: int | None = None):
+    """One view's densification increments (G.densification_increments
+    on a batch of one) from its mean2D offset's gradient, over the rows
+    the slab skip leaves (all of them without it)."""
+    m = G.slab_rows(state, n_slabs, watermark_hint)
+    return G.densification_increments(
+        screen_grads(offset_grad, width, height)[None, :m], radii[None, :m])
+
+
+def finish_step(state: G.GaussianState, grads, increments,
+                opt: OptimizationParams, position_lr_step, spatial_lr_scale,
+                n_slabs: int = 0, watermark_hint: int | None = None) -> None:
+    """The end of every mapping step, in place, after the path's own
+    reductions: a None gradient (a group the loss does not reach) becomes
+    zeros, invalid rows' gradients are zeroed so that their Adam moments
+    only decay, the densification statistics take `increments`
+    (G.densification_increments' sums over the leading rows they cover),
+    and one Adam step runs at make_lrs' rates. `grads` are the groups'
+    (GROUPS order). n_slabs > 0: Adam's watermark slab skip
+    (G.adam_update)."""
+    with runtime.span("step.adam"):
+        valid = state.valid
+        g_params = G.GaussianParams(*(
+            torch.zeros_like(getattr(state.params, name)) if g is None else
+            torch.where(valid.view((-1,) + (1,) * (g.ndim - 1)), g, 0.0)
+            for g, name in zip(grads, G.GROUPS)))
+        G.apply_densification_increments(state, *increments)
+        G.adam_update(state, g_params,
+                      make_lrs(opt, spatial_lr_scale, position_lr_step),
+                      n_slabs=n_slabs, watermark_hint=watermark_hint)
+
+
 def train_step(state: G.GaussianState,
                world_view: torch.Tensor, full_proj: torch.Tensor,
                cam_center: torch.Tensor, tan_fovx, tan_fovy,
@@ -95,8 +154,7 @@ def train_step(state: G.GaussianState,
             tuple(gt_lang_feat.shape[:2]) != (height, width):
         gt_lang_feat = upsample_lf(gt_lang_feat, height, width)
 
-    leaves = {name: t.detach().requires_grad_(True)
-              for name, t in state.params.as_dict().items()}
+    leaves = leaves_of(state)
     offset0 = torch.zeros(state.capacity, 2, device=state.valid.device,
                           requires_grad=True)
 
@@ -108,13 +166,11 @@ def train_step(state: G.GaussianState,
             valid.shape[0] % cfg.p_slabs == 0:
         watermark_hint = int(watermark(valid))
     p = {name: full(t) for name, t in leaves.items()}
-    sh = torch.cat([p["f_dc"], p["f_rest"]], dim=1)
     with runtime.span("step.render"):
         out = render_arrays(
-            p["xyz"], sh, p["lang_feat"], torch.sigmoid(p["opacity"][:, 0]),
-            torch.exp(p["scaling"]), p["rotation"], valid, world_view,
-            full_proj, cam_center, tan_fovx, tan_fovy, width, height, bg,
-            active_sh_degree, cfg, include_lang_feat=include_lang_feat,
+            *activated(p), valid, world_view, full_proj, cam_center,
+            tan_fovx, tan_fovy, width, height, bg, active_sh_degree, cfg,
+            include_lang_feat=include_lang_feat,
             mean2d_offset=full(offset0), max_per_tile=max_per_tile,
             binning=binning, emit_kfin=emit_kfin,
             watermark_hint=watermark_hint)
@@ -122,31 +178,14 @@ def train_step(state: G.GaussianState,
         loss = losses.mapping_loss(
             out.color, gt_color, out.lang_feat, gt_lang_feat, out.depth,
             gt_depth, mask, opt.lambda_dssim)
-    # without language features the lang_feat leaf is unused: zero grad
+    # without language features the lang_feat leaf is unused: no grad
     with runtime.span("step.backward"):
         grads = torch.autograd.grad(loss, [*leaves.values(), offset0],
                                     allow_unused=True)
-
-    # zero grads of invalid slots so their Adam moments only decay
-    def masked(g, leaf):
-        if g is None:
-            return torch.zeros_like(leaf)
-        return torch.where(state.valid.view((-1,) + (1,) * (g.ndim - 1)),
-                           g, 0.0)
-
-    # densification stats in the reference's NDC convention
-    g2d = grads[-1]
-    with runtime.span("step.adam"):
-        g_params = G.GaussianParams(*(masked(g, leaf) for g, leaf in
-                                      zip(grads[:-1], leaves.values())))
-        G.add_densification_stats(
-            state, torch.stack([g2d[:, 0] * (0.5 * width),
-                                g2d[:, 1] * (0.5 * height)], dim=1),
-            capacity.local_rows(out.radii, gather_group), n_slabs=n_slabs,
-            watermark_hint=watermark_hint)
-        G.adam_update(state, g_params,
-                      make_lrs(opt, spatial_lr_scale, position_lr_step),
-                      n_slabs=n_slabs, watermark_hint=watermark_hint)
+    finish_step(state, grads[:-1], view_increments(
+        state, grads[-1], capacity.local_rows(out.radii, gather_group),
+        width, height, n_slabs, watermark_hint), opt, position_lr_step,
+        spatial_lr_scale, n_slabs, watermark_hint)
 
     loss = loss.detach()
     color, depth = out.color.detach(), out.depth.detach()

@@ -187,8 +187,8 @@ def create_from_pcd(points, colors, capacity: int, lang_feat=None,
     return state
 
 
-def _slab_rows(state: GaussianState, n_slabs: int,
-               watermark_hint: int | None) -> int:
+def slab_rows(state: GaussianState, n_slabs: int,
+              watermark_hint: int | None) -> int:
     """Rows the slab-skipped updates touch: the whole-slab prefix covering
     the live watermark (ops/slabs.py), or every row without slabs."""
     cap = state.capacity
@@ -212,7 +212,7 @@ def adam_update(state: GaussianState, grads: GaussianParams,
     the rows above the live watermark are invalid with zero moments and
     zero grads, fixed points of the update. `watermark_hint` is the
     watermark if the caller knows it on the host (else one read)."""
-    m_rows = _slab_rows(state, n_slabs, watermark_hint)
+    m_rows = slab_rows(state, n_slabs, watermark_hint)
     state.adam_step += 1
     t = state.adam_step.to(torch.float32)
     bc1 = 1.0 - torch.pow(ADAM_B1, t)
@@ -257,21 +257,15 @@ def add_densification_stats(state: GaussianState, mean2d_grad: torch.Tensor,
                             ) -> GaussianState:
     """Accumulate ||dL/dmean2D.xy||2 and visit counts for visible
     gaussians (radii > 0), and the running max screen radius, in place
-    (gaussian_model.cpp:834-847, gaussian_mapper.cpp:739-747).
+    (gaussian_model.cpp:834-847, gaussian_mapper.cpp:739-747): one view's
+    densification_increments, a batch of one.
 
     n_slabs > 0: the watermark slab skip, exact because the rows above
     the watermark are invalid and render with radius 0 (not visible), so
     their statistics are fixed points of the accumulation."""
-    m = _slab_rows(state, n_slabs, watermark_hint)
-    visible = radii[:m] > 0
-    norm = torch.linalg.norm(mean2d_grad[:m, :2], dim=-1)
-    st = state.stats
-    st.grad_accum[:m].add_(torch.where(visible, norm, 0.0))
-    st.denom[:m].add_(visible.to(torch.float32))
-    mr = st.max_radii2d[:m]
-    torch.maximum(mr, torch.where(visible, radii[:m].to(torch.float32), 0.0),
-                  out=mr)
-    return state
+    m = slab_rows(state, n_slabs, watermark_hint)
+    return apply_densification_increments(state, *densification_increments(
+        mean2d_grad[None, :m], radii[None, :m]))
 
 
 @torch.no_grad()
@@ -291,11 +285,15 @@ def densification_increments(mean2d_grads: torch.Tensor,
 @torch.no_grad()
 def apply_densification_increments(state: GaussianState, grad_inc, denom_inc,
                                    radii_max) -> GaussianState:
-    """Add densification_increments' sums to the statistics, in place."""
+    """Add densification_increments' sums to the statistics, in place.
+    The increments cover the store's leading rows (all of them, or the
+    slab skip's prefix)."""
+    n = grad_inc.shape[0]
     st = state.stats
-    st.grad_accum.add_(grad_inc)
-    st.denom.add_(denom_inc)
-    torch.maximum(st.max_radii2d, radii_max, out=st.max_radii2d)
+    st.grad_accum[:n].add_(grad_inc)
+    st.denom[:n].add_(denom_inc)
+    mr = st.max_radii2d[:n]
+    torch.maximum(mr, radii_max, out=mr)
     return state
 
 

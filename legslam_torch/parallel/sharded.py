@@ -29,7 +29,9 @@ import torch
 import torch.distributed as dist
 
 from legslam_torch.config import OptimizationParams, RasterizeConfig
-from legslam_torch.mapper.train_step import StepAux, make_lrs
+from legslam_torch.mapper.train_step import (StepAux, activated,
+                                             finish_step, leaves_of,
+                                             screen_grads)
 from legslam_torch.models import gaussians as G
 from legslam_torch.ops import losses
 from legslam_torch.ops.rasterize import render_arrays
@@ -73,7 +75,10 @@ def make_group(n: int):
 
 
 def all_reduce_(tensors, group, op=dist.ReduceOp.SUM) -> None:
-    """In-place all_reduce of same-dtype tensors in one flat buffer."""
+    """In-place all_reduce of same-dtype tensors in one flat buffer. A
+    None (the gradient of a group the loss does not reach, None on every
+    rank alike) is left out."""
+    tensors = [t for t in tensors if t is not None]
     if group_size(group) == 1 or not tensors:
         return
     flat = torch.cat([t.reshape(-1) for t in tensors])
@@ -129,19 +134,11 @@ def make_view_batch(views, gt_color, gt_lang_feat, gt_depth, mask
         gt_depth=gt_depth, mask=mask)
 
 
-def _leaves(state: G.GaussianState) -> dict:
-    return {name: t.detach().requires_grad_(True)
-            for name, t in state.params.as_dict().items()}
-
-
 def _render_view(leaves, valid, batch: ViewBatch, v: int, offset, bg,
                  width, height, active_sh_degree, cfg, include_lang_feat,
                  max_per_tile):
-    sh = torch.cat([leaves["f_dc"], leaves["f_rest"]], dim=1)
     return render_arrays(
-        leaves["xyz"], sh, leaves["lang_feat"],
-        torch.sigmoid(leaves["opacity"][:, 0]), torch.exp(leaves["scaling"]),
-        leaves["rotation"], valid, batch.world_view[v], batch.full_proj[v],
+        *activated(leaves), valid, batch.world_view[v], batch.full_proj[v],
         batch.cam_center[v], float(batch.tan_fovx[v]),
         float(batch.tan_fovy[v]), width, height, bg, active_sh_degree, cfg,
         include_lang_feat=include_lang_feat, mean2d_offset=offset,
@@ -152,22 +149,15 @@ def finish_batched_step(state: G.GaussianState, leaves: dict,
                         per_view_grads: torch.Tensor, radii: torch.Tensor,
                         opt: OptimizationParams, position_lr_step,
                         spatial_lr_scale, group) -> None:
-    """The common tail of the batched steps, in place: the parameter
-    gradients (accumulated in `leaves`) and the per-view densify
-    increments summed over `group`, invalid slots' gradients zeroed, the
-    statistics, one Adam update."""
-    grads = [leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)
-             for leaf in leaves.values()]
+    """The batched steps' reductions, then the step's tail
+    (train_step.finish_step), in place: the parameter gradients
+    (accumulated in `leaves`) and the per-view densify increments summed
+    over `group` in one buffer, the radii's maximum over it."""
+    grads = [leaf.grad for leaf in leaves.values()]
     incs = list(G.densification_increments(per_view_grads, radii))
     all_reduce_(grads + incs[:2], group)
     all_reduce_(incs[2:], group, dist.ReduceOp.MAX)
-    valid = state.valid
-    g_params = G.GaussianParams(*(
-        torch.where(valid.view((-1,) + (1,) * (g.ndim - 1)), g, 0.0)
-        for g in grads))
-    G.apply_densification_increments(state, *incs)
-    G.adam_update(state, g_params,
-                  make_lrs(opt, spatial_lr_scale, position_lr_step))
+    finish_step(state, grads, incs, opt, position_lr_step, spatial_lr_scale)
 
 
 def batched_psnr(sq_err: torch.Tensor, n: int, group) -> torch.Tensor:
@@ -177,6 +167,19 @@ def batched_psnr(sq_err: torch.Tensor, n: int, group) -> torch.Tensor:
         float(n), dtype=torch.float64, device=sq_err.device)])
     all_reduce_([acc], group)
     return (10.0 * torch.log10(acc[1] / acc[0])).float()
+
+
+def batched_aux(state: G.GaussianState, totals: torch.Tensor, B: int,
+                color, depth, radii, psnr) -> StepAux:
+    """The batched steps' StepAux from the batch's summed (loss,
+    overflow) `totals`: the loss is the views' mean, and sync3 carries no
+    rendered-pair count."""
+    loss = totals[0] / B
+    sync3 = torch.stack([loss, totals[1], torch.zeros_like(loss),
+                         state.valid.sum(dtype=torch.int32).float()])
+    return StepAux(loss=loss, color=color, depth=depth, radii=radii,
+                   psnr=psnr, overflow_pairs=totals[1].to(torch.int32),
+                   sync3=sync3)
 
 
 def batched_train_step(state: G.GaussianState, batch: ViewBatch,
@@ -193,7 +196,7 @@ def batched_train_step(state: G.GaussianState, batch: ViewBatch,
     W = group_size(group)
     B_local = batch.gt_color.shape[0]
     B = W * B_local
-    leaves = _leaves(state)
+    leaves = leaves_of(state)
     dev = state.valid.device
     loss_sum = torch.zeros((), device=dev)
     sq_err = torch.zeros((), device=dev)
@@ -213,8 +216,7 @@ def batched_train_step(state: G.GaussianState, batch: ViewBatch,
         (loss / B).backward()
         loss_sum += loss.detach()
         # the view's screen gradient: the loss mean's 1/B undone
-        per_view.append(off.grad * (float(B) * torch.tensor(
-            [0.5 * width, 0.5 * height], device=dev)))
+        per_view.append(screen_grads(off.grad, width, height, views=B))
         radii.append(out.radii)
         overflow += out.overflow_pairs
         m = batch.mask[v][..., None]
@@ -230,6 +232,4 @@ def batched_train_step(state: G.GaussianState, batch: ViewBatch,
     rmax = radii.amax(0)
     all_reduce_([rmax], group, dist.ReduceOp.MAX)
     psnr = batched_psnr(sq_err, B * height * width * 3, group)
-    return state, StepAux(loss=totals[0] / B, color=color0, depth=depth0,
-                          radii=rmax, psnr=psnr,
-                          overflow_pairs=totals[1].to(torch.int32))
+    return state, batched_aux(state, totals, B, color0, depth0, rmax, psnr)

@@ -34,13 +34,15 @@ import torch
 import torch.nn.functional as F
 
 from legslam_torch.config import OptimizationParams, RasterizeConfig
-from legslam_torch.mapper.train_step import StepAux, make_lrs
+from legslam_torch.mapper.train_step import (StepAux, activated,
+                                             finish_step, leaves_of,
+                                             screen_grads, view_increments)
 from legslam_torch.models import gaussians as G
 from legslam_torch.ops import losses
 from legslam_torch.ops.rasterize import compute_binning, render_arrays
 from legslam_torch.parallel import capacity
 from legslam_torch.parallel.sharded import (ViewBatch, all_reduce_,
-                                            batched_psnr,
+                                            batched_aux, batched_psnr,
                                             finish_batched_step, group_rank,
                                             group_size)
 
@@ -113,15 +115,12 @@ def _strip_view_loss(params7: dict, valid, world_view, full_proj,
     this rank's strips' rows (the colour all-gathered with its
     gradient kept to the own strips: every rank back-propagates the same
     colour term)."""
-    sh = torch.cat([params7["f_dc"], params7["f_rest"]], dim=1)
+    args = activated(params7)
     outs = []
     for i, cy in enumerate(crop_ys):
         outs.append(render_arrays(
-            params7["xyz"], sh, params7["lang_feat"],
-            torch.sigmoid(params7["opacity"][:, 0]),
-            torch.exp(params7["scaling"]), params7["rotation"], valid,
-            world_view, full_proj, cam_center, tan_fovx, tan_fovy, width,
-            height, bg, active_sh_degree, cfg,
+            *args, valid, world_view, full_proj, cam_center, tan_fovx,
+            tan_fovy, width, height, bg, active_sh_degree, cfg,
             include_lang_feat=include_lang_feat,
             mean2d_offset=mean2d_offset, max_per_tile=max_per_tile,
             binning=None if binning is None else binning[i],
@@ -194,8 +193,7 @@ def spatial_train_step(state: G.GaussianState,
     mine = local_strips(n_strips, group)
     cys = [crop_ys[i] for i in mine]
     gather_group = group if shard_store else None
-    leaves = {name: t.detach().requires_grad_(True)
-              for name, t in state.params.as_dict().items()}
+    leaves = leaves_of(state)
     dev = state.valid.device
     offset0 = torch.zeros(state.capacity, 2, device=dev, requires_grad=True)
 
@@ -214,23 +212,15 @@ def spatial_train_step(state: G.GaussianState,
             strip_group=group, watermark_hint=watermark_hint)
     grads = list(torch.autograd.grad(loss, [*leaves.values(), offset0],
                                      allow_unused=True))
-    grads = [torch.zeros_like(x) if g is None else g
-             for g, x in zip(grads, [*leaves.values(), offset0])]
     if not shard_store:
         # the strips' gradients (a shard's were reduce-scattered already)
         all_reduce_(grads, group)
-    valid_loc = state.valid
-    g_params = G.GaussianParams(*(
-        torch.where(valid_loc.view((-1,) + (1,) * (g.ndim - 1)), g, 0.0)
-        for g in grads[:-1]))
     # radii are the full preprocess's, the same for every strip
-    g2d = grads[-1]
-    G.add_densification_stats(
-        state, torch.stack([g2d[:, 0] * (0.5 * width),
-                            g2d[:, 1] * (0.5 * height)], dim=1),
-        capacity.local_rows(radii, gather_group))
-    G.adam_update(state, g_params,
-                  make_lrs(opt, spatial_lr_scale, position_lr_step))
+    n_slabs = cfg.p_slabs if gather_group is None else 0
+    finish_step(state, grads[:-1], view_increments(
+        state, grads[-1], capacity.local_rows(radii, gather_group), width,
+        height, n_slabs, watermark_hint), opt, position_lr_step,
+        spatial_lr_scale, n_slabs, watermark_hint)
 
     totals = torch.stack([partial, torch.as_tensor(
         num_rendered, dtype=torch.float32, device=dev), torch.as_tensor(
@@ -296,8 +286,7 @@ def spatial_batched_train_step(state: G.GaussianState, batch: ViewBatch,
     B = W_v * B_local
     mine = local_strips(len(crop_ys), strip_group)
     cys = [crop_ys[i] for i in mine]
-    leaves = {name: t.detach().requires_grad_(True)
-              for name, t in state.params.as_dict().items()}
+    leaves = leaves_of(state)
     dev = state.valid.device
     loss_sum = torch.zeros((), device=dev)
     sq_err = torch.zeros((), device=dev)
@@ -335,11 +324,7 @@ def spatial_batched_train_step(state: G.GaussianState, batch: ViewBatch,
     # mean's 1/B undone
     g2d = torch.stack(per_view)
     all_reduce_([g2d], strip_group)
-    g2d = g2d * (float(B) * torch.tensor([0.5 * width, 0.5 * height],
-                                         device=dev))
-    for leaf in leaves.values():
-        if leaf.grad is None:
-            leaf.grad = torch.zeros_like(leaf)
+    g2d = screen_grads(g2d, width, height, views=B)
     all_reduce_([leaf.grad for leaf in leaves.values()], strip_group)
     finish_batched_step(state, leaves, g2d, radii, opt, position_lr_step,
                         spatial_lr_scale, view_group)
@@ -348,6 +333,4 @@ def spatial_batched_train_step(state: G.GaussianState, batch: ViewBatch,
     rmax = radii.amax(0)
     all_reduce_([rmax], view_group, torch.distributed.ReduceOp.MAX)
     psnr = batched_psnr(sq_err, B * height * width * 3, view_group)
-    return state, StepAux(loss=totals[0] / B, color=color0, depth=depth0,
-                          radii=rmax, psnr=psnr, num_rendered=0,
-                          overflow_pairs=totals[1].to(torch.int32))
+    return state, batched_aux(state, totals, B, color0, depth0, rmax, psnr)

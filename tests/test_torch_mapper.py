@@ -201,8 +201,31 @@ def _drive(mapper, frontend, frames, lf_images=None):
     return losses, picks, invalid, densified
 
 
+def _record_cache(mp, mapper, fill_owner, fill_name, trim_owner, trim_name):
+    """Record the mapper's binning cache fills, pre-trims (the calls that
+    pass slack_chunks) and trims as (iteration, kind), through the
+    function each package calls for them."""
+    log = []
+    fill, trim = getattr(fill_owner, fill_name), getattr(trim_owner,
+                                                         trim_name)
+
+    def filled(*a, **k):
+        log.append((mapper.iteration, "fill"))
+        return fill(*a, **k)
+
+    def trimmed(*a, **k):
+        log.append((mapper.iteration,
+                    "pretrim" if "slack_chunks" in k else "trim"))
+        return trim(*a, **k)
+    mp.setattr(fill_owner, fill_name, filled)
+    mp.setattr(trim_owner, trim_name, trimmed)
+    return log
+
+
 @pytest.fixture(scope="module")
 def mapper_runs(frames, tmp_path_factory):
+    from legslam_tpu.mapper import mapper as jax_mapper_mod
+    from legslam_torch.mapper import binning_cache
     frames, intr = frames
     kw = dict(capacity=1 << 12, max_per_tile=512, include_lang_feat=False,
               binning_refresh_interval=2, seed=0)
@@ -218,7 +241,15 @@ def mapper_runs(frames, tmp_path_factory):
                                             cuda_sort=True),
                         result_dir=str(tmp_path_factory.mktemp("torch")),
                         device="cpu", **kw)
-    return (_drive(mj, fj, frames), mj), (_drive(mt, ft, frames), mt)
+    with pytest.MonkeyPatch.context() as mp:
+        mj.cache_log = _record_cache(mp, mj, jax_mapper_mod, "_binning_jit",
+                                     jax_mapper_mod, "_trim_binning_jit")
+        run_j = _drive(mj, fj, frames)
+    with pytest.MonkeyPatch.context() as mp:
+        mt.cache_log = _record_cache(mp, mt, mt, "binning_for",
+                                     binning_cache, "trim_binning")
+        run_t = _drive(mt, ft, frames)
+    return (run_j, mj), (run_t, mt)
 
 
 def test_mapper_schedule_matches(mapper_runs):
@@ -233,7 +264,11 @@ def test_mapper_schedule_matches(mapper_runs):
     # one clone-only densify, which grew the store the same on both sides
     assert dt == dj and len(dt) == 1 and dt[0][2] > dt[0][1]
     assert dt[0][0] == OPT_KW["densification_interval"]
-    assert mt.fresh_binnings >= mt.iteration // 2
+    # the binning cache's fills, pre-trims and trims, in JAX's order
+    assert mt.cache_log == mj.cache_log
+    kinds = [k for _, k in mt.cache_log]
+    assert {"fill", "pretrim", "trim"} <= set(kinds)
+    assert mt.fresh_binnings == kinds.count("fill")
     np.testing.assert_allclose(lt, lj, rtol=1e-3)
 
 

@@ -309,3 +309,91 @@ def test_densification_stats_batched_matches_jax(scene):
     np.testing.assert_array_equal(tt["max_radii2d"], tj["max_radii2d"])
     np.testing.assert_allclose(tt["grad_accum"], tj["grad_accum"], rtol=1e-6)
     assert tt["denom"].max() == 3
+
+
+def _one_step(step, jst, views, gt):
+    """One step of `step` (a public step function's name) on the scene's
+    first two views (the one-view steps on the first); returns the state
+    it stepped."""
+    kw = dict(active_sh_degree=0, opt=OptimizationParams(),
+              cfg=RasterizeConfig(**KW), max_per_tile=128)
+    st, view = _port_state(jst), torch_view(views[0])
+    layout = spatial.spatial_layout(H, KW["tile_h"], 2)
+    cys = spatial.strip_offsets(layout)
+    if step == "train_step":
+        train_step(st, view.world_view, view.full_proj, view.cam_center,
+                   view.tan_fovx, view.tan_fovy,
+                   *(t_(gt[k][0]) for k in ("gt_color", "gt_lang_feat",
+                                            "gt_depth", "mask")),
+                   torch.zeros(3), 0.0, 1.0, width=W, height=H, **kw)
+    elif step == "spatial_train_step":
+        spatial.spatial_train_step(
+            st, view.world_view, view.full_proj, view.cam_center,
+            view.tan_fovx, view.tan_fovy, *_spatial_inputs(gt, layout),
+            torch.zeros(3), 0.0, 1.0, cys, width=W, height=H,
+            h_local=layout.h_local, **kw)
+    else:
+        b = _port_batch(views[:2], {k: v[:2] for k, v in gt.items()})
+        if step == "batched_train_step":
+            sharded.batched_train_step(st, b, torch.zeros(3), 0.0, 1.0,
+                                       width=W, height=H, **kw)
+        else:
+            b = b._replace(**{k: torch.stack([
+                spatial.pad_rows(x, layout.h_padded)
+                for x in getattr(b, k)])
+                for k in ("gt_color", "gt_lang_feat", "gt_depth", "mask")})
+            spatial.spatial_batched_train_step(
+                st, b, torch.zeros(3), 0.0, 1.0, cys, width=W, height=H,
+                h_local=layout.h_local, **kw)
+    return st
+
+
+@pytest.mark.parametrize("step", ["train_step", "spatial_train_step",
+                                  "batched_train_step",
+                                  "spatial_batched_train_step"])
+def test_every_step_ends_in_one_adam_update(scene, step, monkeypatch):
+    """Each public step function ends in the one tail
+    (train_step.finish_step): G.adam_update once a step, looked up through
+    the module, with the invalid rows' gradients zero."""
+    jst, views, gt = scene
+    calls, adam = [], G.adam_update
+
+    def counted(state, grads, *a, **k):
+        calls.append({n: getattr(grads, n).clone() for n in G.GROUPS})
+        return adam(state, grads, *a, **k)
+    monkeypatch.setattr(G, "adam_update", counted)
+    st = _one_step(step, jst, views, gt)
+    assert len(calls) == 1
+    valid = st.valid
+    assert valid.any() and not valid.all()
+    for n, g in calls[0].items():
+        assert not g[~valid].any(), n
+    assert calls[0]["xyz"][valid].abs().sum() > 0
+
+
+@pytest.mark.parametrize("n_slabs", [0, 4])
+def test_densification_stats_is_one_view_batch(scene, n_slabs):
+    """add_densification_stats (one view; with the slab skip's prefix)
+    equals the per-row accumulation written out, bit for bit: the visible
+    rows' screen-gradient norm, a visit each, the max radius."""
+    jst = scene[0]
+    st = _port_state(jst)
+    rng = np.random.default_rng(6)
+    g = t_(rng.normal(size=(st.capacity, 2)).astype(np.float32))
+    r = t_(rng.integers(-1, 4, size=st.capacity).astype(np.int32))
+    r[~st.valid] = 0
+    st.stats.grad_accum.copy_(t_(rng.uniform(size=st.capacity)
+                                 .astype(np.float32)))
+    st.stats.max_radii2d.copy_(t_(rng.integers(0, 3, size=st.capacity)
+                                  .astype(np.float32)))
+    want = G.copy_state(st).stats
+    vis = r > 0
+    want.grad_accum.add_(torch.where(vis, torch.linalg.norm(g, dim=-1),
+                                     0.0))
+    want.denom.add_(vis.to(torch.float32))
+    torch.maximum(want.max_radii2d, torch.where(vis, r.to(torch.float32),
+                                                0.0), out=want.max_radii2d)
+    got = G.add_densification_stats(st, g, r, n_slabs=n_slabs).stats
+    for name in ("grad_accum", "denom", "max_radii2d"):
+        np.testing.assert_array_equal(np_(getattr(got, name)),
+                                      np_(getattr(want, name)), name)
