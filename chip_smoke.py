@@ -29,7 +29,9 @@ Phases (each prints one or more lines; any failure exits non-zero):
      with a digest of the forward's t_final and kfin there, and CUDA-event
      times on a reuse step's inputs, with the bound; the same for the
      render prologue's kernel pair (csrc/prologue.cu: projection, conic,
-     radius, SH colour and the feature matrix, forward and backward); the SM
+     radius, SH colour and the feature matrix, forward and backward) and
+     for the loss kernels (csrc/loss.cu: L1, SSIM, LF cosine and depth L1
+     and their gradient, on the step's own views and target); the SM
      clock, power draw and temperature are sampled beside the step and
      the kernel timings; then the radix sort kernels at the main path's
      shapes, as bin_gaussians launches them with cuda_sort: the scene's
@@ -159,9 +161,10 @@ Phases (each prints one or more lines; any failure exits non-zero):
 
 Each kernel's `launches` is its count over the path that runs it: the
 compositing and prologue kernels' over phase 4's 24 steps (the prologue's
-forward also over its 3 fresh binnings), the sort kernels' over
-phase 5's training loop (phase 4 runs cuda_sort at its default and
-counts their launches too); `query_launches` is its count over phase 7's
+forward also over its 3 fresh binnings), the sort and loss kernels' over
+phase 5's training loop (phase 4 runs cuda_sort at its default and counts
+their launches too; the loss row counts both passes, two launches forward
+and one backward a step); `query_launches` is its count over phase 7's
 pixel-space search, `visual_launches` over phase 8's [visual] system loop,
 `ladder_launches` over phase 10's [ladder] run, `undistort_launches`
 over phase 11's [undistort] run and `inertial_launches` over its three
@@ -612,6 +615,134 @@ def prologue_bound(fwd_args) -> dict:
     return out
 
 
+def capture_loss_inputs(run):
+    """Run `run()` (one mapping step) and return the arguments of its call
+    of ops/losses.mapping_loss, the rendered colour, LF and depth as fresh
+    autograd leaves with their strides (the LF and depth stay channel
+    views of the compositor's image)."""
+    from legslam_torch.ops import losses as L
+    seen = {}
+    real = L.mapping_loss
+
+    def rec(*a):
+        seen["args"] = a
+        return real(*a)
+    L.mapping_loss = rec
+    try:
+        run()
+    finally:
+        L.mapping_loss = real
+    a = list(seen["args"])
+    for i in (0, 2, 4):
+        if a[i] is not None:
+            a[i] = a[i].detach().requires_grad_(True)
+    return tuple(a)
+
+
+def loss_and_grads(fn, args):
+    """fn's loss on `args` and its gradients with respect to the rendered
+    colour, LF and depth (None where absent)."""
+    loss = fn(*args)
+    leaves = [args[i] for i in (0, 2, 4) if args[i] is not None]
+    grads = iter(torch.autograd.grad(loss, leaves))
+    return loss.detach(), [None if args[i] is None else next(grads)
+                           for i in (0, 2, 4)]
+
+
+def check_loss(args, label, card, fails):
+    """The loss kernels against the plain version on the same operands:
+    the loss within 1e-5 relative, each gradient within 1e-5 x its largest
+    plain value (tests/test_torch_loss_cuda.py's). Returns the relative
+    loss error and the largest gradient error over that value."""
+    from legslam_torch.ops import losses as L
+    lk, gk = loss_and_grads(L.mapping_loss, args)
+    torch.cuda.synchronize()
+    lp, gp = loss_and_grads(L.mapping_loss_plain, args)
+    rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    errs = {n: float((a - b).abs().max()) / float(b.abs().max())
+            for n, a, b in zip(("colour", "lf", "depth"), gk, gp)
+            if b is not None}
+    h, w = args[0].shape[:2]
+    nlf = 0 if args[2] is None else args[2].shape[-1]
+    strides = (args[2].stride(), args[3].stride()) if nlf else None
+    print(f"[loss {label}] {w}x{h}, LF {nlf} (render, target strides "
+          f"{strides}): loss {float(lk):.7g} vs plain {float(lp):.7g}, "
+          f"relative {rel:.3g}; gradient max|err| / max|plain| " + ", ".join(
+              f"{n} {e:.3g}" for n, e in errs.items()) + f" [{card}]")
+    if not rel <= 1e-5:
+        fails.append(f"loss {label}: relative error {rel:.3g} > 1e-5")
+    for n, e in errs.items():
+        if not e <= 1e-5:
+            fails.append(f"loss {label}: d{n} error {e:.3g} > 1e-5 of its "
+                         f"largest value")
+    return dict(loss=rel, grads=max(errs.values()))
+
+
+# float operations a pixel of the loss kernels, counted from csrc/loss.cu:
+# the forward's separable blur of five statistics over three channels
+# (2 x 11 x 5 x 2 x 3 = 660), the SSIM map and its derivatives (~40 x 3)
+# and the cosine's three 64-long sums (384); the backward's blur of three
+# planes over three channels (396) and the LF gradient (192)
+LOSS_OPS_FWD = 1170
+LOSS_OPS_BWD = 600
+
+
+def loss_bound(args) -> dict:
+    """Least times (ms) of the loss kernels on these operands: each kernel
+    reads its inputs once and writes its outputs once (the forward: the
+    seven operands in, the 11 saved floats a pixel out; the backward: the
+    operands and the saved floats in, the three gradients out), over the
+    HBM rate, against the operations at the CUDA-core peak."""
+    h, w = args[0].shape[:2]
+    nlf = 0 if args[2] is None else args[2].shape[-1]
+    n = h * w
+    operands = 4 * (3 + 3 + 2 * nlf + 1 + 1 + 1)
+    saved = 4 * (9 + (2 if nlf else 0))
+    grads = 4 * (3 + nlf + 1)
+    out = {}
+    for name, b, o in (("fwd", n * (operands + saved), n * LOSS_OPS_FWD),
+                       ("bwd", n * (operands + saved + grads),
+                        n * LOSS_OPS_BWD)):
+        tb, to = b / PEAK_BYTES * 1e3, o / PEAK_F32_OPS * 1e3
+        out[name] = dict(bound_ms=max(tb, to),
+                         bound_by="bytes" if tb >= to else "operations",
+                         bytes=b, ops=o)
+    return out
+
+
+def queued_ms(fn, reps, sleep_cycles=100_000_000):
+    """event_ms with the calls queued behind a device sleep (~50 ms at
+    1.98 GHz), so that the events time the device's work and not the
+    host's: an autograd backward costs the host about as long as the loss
+    kernels' backward takes the card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def time_loss(args) -> dict:
+    """CUDA-event ms of the loss forward and of its backward (the kernels'
+    and the plain version's), on `args`, queued (queued_ms)."""
+    from legslam_torch.ops import losses as L
+    leaves = [args[i] for i in (0, 2, 4) if args[i] is not None]
+    out = {}
+    for key, fn, reps in (("", L.mapping_loss, 50),
+                          ("_plain", L.mapping_loss_plain, 5)):
+        out["fwd" + key] = queued_ms(lambda: fn(*args), reps)
+        loss = fn(*args)
+        out["bwd" + key] = queued_ms(lambda: torch.autograd.grad(
+            loss, leaves, retain_graph=True), reps)
+    return out
+
+
 def check_backends(st, view, gt, mm_dtype, card, fails):
     """The "cuda" backend's render and gradients against the "torch"
     reference compositor on the card: color / depth / final_t atol 3e-5 /
@@ -763,13 +894,15 @@ def path_kernels() -> dict:
     """The kernel wrappers of the mapping path, by kernel name."""
     from legslam_torch.ops.cuda import composite as cf
     from legslam_torch.ops.cuda import composite_bwd as cb
+    from legslam_torch.ops.cuda import loss as lk
     from legslam_torch.ops.cuda import prologue as pr
     from legslam_torch.ops.cuda import sort as cs
     return dict(composite_fwd=cf.composite_forward,
                 composite_bwd=cb.composite_backward,
                 sort_keys=cs.sort_keys, sort_kv=cs.sort_kv,
                 prologue_fwd=pr.prologue_forward,
-                prologue_bwd=pr.prologue_backward)
+                prologue_bwd=pr.prologue_backward,
+                loss=lk.mapping_loss_cuda)
 
 
 # the kernels the server counts in its replies (serving/api.kernel_launches)
@@ -1170,6 +1303,10 @@ def mapper_phase(dev, card, fails, out_dir, ds, frames, render_s):
         if launches[k] != mapper.iteration:
             fails.append(f"mapper: {k} launched {launches[k]} times in "
                          f"{mapper.iteration} iterations")
+    # the loss: two forward launches and one backward a step
+    if launches["loss"] != 3 * mapper.iteration:
+        fails.append(f"mapper: loss kernels launched {launches['loss']} "
+                     f"times in {mapper.iteration} iterations")
     # one prologue a render and a fresh binning
     if launches["prologue_fwd"] != mapper.iteration + mapper.fresh_binnings:
         fails.append(f"mapper: prologue_fwd launched "
@@ -2732,7 +2869,9 @@ def mapper_run(dev, card, fails, label, ds, frames, out_dir, p_slabs=0,
     if not all(math.isfinite(x) for x in losses):
         fails.append(f"{label}: loss not finite")
     for k, v in launches.items():
-        if v == 0:
+        # the strip step sums the loss's terms over its strips itself
+        # (parallel/spatial.py) and launches no loss kernel
+        if v == 0 and not (k == "loss" and mapper_kw.get("spatial_strips")):
             fails.append(f"{label}: {k} launched no time")
     return mapper, ms, launches, peak
 
@@ -2744,9 +2883,9 @@ def strips_phase(dev, card, fails, st0, view, gt, ds, frames, out_dir):
     strip's colour and depth equal the full render's rows to 1e-6
     (tests/test_spatial.py's atol; t_final's bit equality is printed);
     one step from the initial store st0 agrees with train_step's on the
-    same view (step_ok: the loss, the parameters, the Adam moments and
-    grad_accum), with the same visit counts. Then phase 5's room through
-    GaussianMapper(spatial_strips=4)."""
+    same view with the plain loss (step_ok: the loss, the parameters, the
+    Adam moments and grad_accum), with the same visit counts. Then phase
+    5's room through GaussianMapper(spatial_strips=4)."""
     from legslam_torch.parallel import spatial
     from legslam_torch.ops.rasterize import compute_binning
     cfg = make_cfg(1 << 20, "bfloat16")
@@ -2784,10 +2923,20 @@ def strips_phase(dev, card, fails, st0, view, gt, ds, frames, out_dir):
     st_s, aux_s = one_step(st0, view, gt, cfg, strip_step)
     sync(dev)
     strip_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    st_1, aux_1 = one_step(st0, view, gt, cfg)
-    sync(dev)
-    one_ms = (time.perf_counter() - t0) * 1e3
+    # train_step with the plain loss, whose terms the strip step sums:
+    # this gate is on the decomposition, and one Adam step turns the loss
+    # kernels' rounding (check_loss) into parameter steps of up to the
+    # learning rate where a gradient is near zero
+    from legslam_torch.ops import losses as L
+    kernels = L.mapping_loss
+    L.mapping_loss = L.mapping_loss_plain
+    try:
+        t0 = time.perf_counter()
+        st_1, aux_1 = one_step(st0, view, gt, cfg)
+        sync(dev)
+        one_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        L.mapping_loss = kernels
     errs = step_errs(st_s, st_1)
     denom_eq = torch.equal(st_s.stats.denom, st_1.stats.denom)
     l_s, l_1 = float(aux_s.loss), float(aux_1.loss)
@@ -2797,8 +2946,8 @@ def strips_phase(dev, card, fails, st0, view, gt, ds, frames, out_dir):
           f"t_final bit-equal {t_equal}; one step from the initial store: "
           f"loss {l_s:.7f} (train_step {l_1:.7f}), max err "
           f"{errs_text(errs)}, denom equal {denom_eq}; step "
-          f"ms strips {strip_ms:.1f} vs one view {one_ms:.1f} (one call "
-          f"each, host clock) [{card}]")
+          f"ms strips {strip_ms:.1f} vs one view {one_ms:.1f} (plain loss; "
+          f"one call each, host clock) [{card}]")
     if span_ov:
         fails.append(f"strips: span_overflow {span_ov}")
     if not (e_c <= 1e-6 and e_d <= 1e-6):
@@ -4792,7 +4941,8 @@ def evaluation_phase(dev, card, fails, out_dir, enc):
 
 REPO = Path(__file__).resolve().parent
 DOCKERFILE = REPO / "Dockerfile.torch"
-CUDA_KERNELS = ("composite_fwd", "composite_bwd", "sort", "prologue", "sgm")
+CUDA_KERNELS = ("composite_fwd", "composite_bwd", "sort", "prologue", "sgm",
+                "loss")
 PIP = ("-m", "pip", "--disable-pip-version-check", "--no-cache-dir",
        "--quiet")
 
@@ -5006,7 +5156,9 @@ def deploy_phase(card, fails, served: dict, rls: dict) -> dict:
 
         # (e) what the server has mapped
         maps = mapped_files(proc.pid)
-        mapped = {n: str(p) in maps for n, p in libs.items()}
+        # every library but SGM's: the layout is RGB-D, so no request runs
+        # a stereo match
+        mapped = {n: str(p) in maps for n, p in libs.items() if n != "sgm"}
         in_tree = sorted(f for f in maps if f.startswith(
             str(REPO / "build" / "legslam_torch")))
         print(f"[deploy] Dockerfile.torch's CMD "
@@ -5082,9 +5234,10 @@ def build_phase():
             if "ILi72E" in line:
                 dtype = "bf16" if "bfloat16" in line else "f32"
                 print(f"[build] {n} <72, {dtype}>: {tail}")
-            elif n == "prologue":
-                form = "bwd" if "bwd_kernel" in line else "fwd"
-                print(f"[build] prologue {form}: {tail}")
+            elif n in ("prologue", "loss"):
+                form = next(k for k in ("fwd", "bwd", "sum")
+                            if f"{k}_kernel" in line)
+                print(f"[build] {n} {form}: {tail}")
             elif n == "sgm" and ("census" in line or "IhLi4E" in line):
                 # the cell's instantiations: 8-bit paths, 4 disparities a
                 # lane (128)
@@ -5115,6 +5268,7 @@ def main() -> int:
     from legslam_torch.models import gaussians as G
     from legslam_torch.ops.cuda import composite as cf
     from legslam_torch.ops.cuda import composite_bwd as cb
+    from legslam_torch.ops.cuda import loss as lk
     from legslam_torch.ops.cuda import prologue as pr
     from legslam_torch.ops.cuda import sort as cs
 
@@ -5152,7 +5306,8 @@ def main() -> int:
     main_kernels = dict(fwd=cf.composite_forward, bwd=cb.composite_backward,
                         sort_keys=cs.sort_keys, sort_kv=cs.sort_kv,
                         prologue_fwd=pr.prologue_forward,
-                        prologue_bwd=pr.prologue_backward)
+                        prologue_bwd=pr.prologue_backward,
+                        loss=lk.mapping_loss_cuda)
     for fn in main_kernels.values():
         fn.launches = 0
     group_ms, losses = [], []
@@ -5176,7 +5331,7 @@ def main() -> int:
           f"{launches['bwd']}, cuda_sort {cuda_sort}: sort_keys "
           f"{launches['sort_keys']} sort_kv {launches['sort_kv']} "
           f"(3 fresh binnings), prologue fwd {launches['prologue_fwd']} bwd "
-          f"{launches['prologue_bwd']}; group ms "
+          f"{launches['prologue_bwd']}, loss {launches['loss']}; group ms "
           f"{[round(x, 2) for x in group_ms]}; "
           f"median ms/step of the timed groups {step_ms:.3f}; "
           f"max_memory_allocated {peak_gib:.2f} GiB [{card}]")
@@ -5193,7 +5348,9 @@ def main() -> int:
                          f"fresh binnings, cuda_sort {cuda_sort}")
     # the prologue: one forward a render and a fresh binning, one backward
     # a step
-    for k, want in (("prologue_fwd", steps + 3), ("prologue_bwd", steps)):
+    # and the loss: two launches forward, one backward a step
+    for k, want in (("prologue_fwd", steps + 3), ("prologue_bwd", steps),
+                    ("loss", 3 * steps)):
         if launches[k] != want:
             fails.append(f"main: {k} launched {launches[k]} times in "
                          f"{steps} steps and 3 fresh binnings")
@@ -5207,13 +5364,16 @@ def main() -> int:
     seen = {}
     binning0 = first._binning()
     fa, ba = capture_kernel_inputs(lambda: seen.update(pro=(
-        capture_prologue_inputs(lambda: first.step(binning0)))))
+        capture_prologue_inputs(lambda: seen.update(loss=capture_loss_inputs(
+            lambda: first.step(binning0)))))))
     errs = check_kernels(fa, ba, "1200x680 bf16", card, fails)
     pro_errs = check_prologue(*seen["pro"], "1200x680", card, fails)
+    loss_errs = check_loss(seen.pop("loss"), "1200x680", card, fails)
     del first, st0, binning0
     # timed on a reuse step's inputs
     fa, ba = capture_kernel_inputs(lambda: seen.update(pro=(
-        capture_prologue_inputs(lambda: drv.step(drv.binning)))))
+        capture_prologue_inputs(lambda: seen.update(loss=capture_loss_inputs(
+            lambda: drv.step(drv.binning)))))))
     pfa, pba = seen.pop("pro")
     pro_b = prologue_bound(pfa)
     with ClockSampler() as clk_pro:
@@ -5234,6 +5394,23 @@ def main() -> int:
           f"[{card}]")
     print(f"[clocks] prologue timing: {clk_pro.summary()} [{card}]")
     del pfa, pba
+    la = seen.pop("loss")
+    loss_b = loss_bound(la)
+    with ClockSampler() as clk_loss:
+        loss_times = time_loss(la)
+    pair_ms = loss_times["fwd"] + loss_times["bwd"]
+    pair_bound = loss_b["fwd"]["bound_ms"] + loss_b["bwd"]["bound_ms"]
+    print(f"[loss] times at 1200x680 (LF {la[2].shape[-1]}, the render's "
+          f"views and the target as the step passes them): fwd "
+          f"{loss_times['fwd']:.4f} ms (plain {loss_times['fwd_plain']:.3f}"
+          f", bound {loss_b['fwd']['bound_ms']:.4f} by "
+          f"{loss_b['fwd']['bound_by']}); bwd {loss_times['bwd']:.4f} ms "
+          f"(plain {loss_times['bwd_plain']:.3f}, bound "
+          f"{loss_b['bwd']['bound_ms']:.4f} by {loss_b['bwd']['bound_by']})"
+          f"; the pair {pair_ms:.4f} ms, {pair_ms / pair_bound:.2f}x its "
+          f"bound; no library call computes this loss [{card}]")
+    print(f"[clocks] loss timing: {clk_loss.summary()} [{card}]")
+    del la
     _, _, kfin = cf.composite_forward(*fa)
     b = bounds(fa, kfin)
     with ClockSampler() as clk_kernels:
@@ -5395,6 +5572,22 @@ def main() -> int:
                          plain_ms=pro_times[f"{k}_plain"],
                          bound_ms=pro_b[k]["bound_ms"],
                          bound_by=pro_b[k]["bound_by"], library_ms=None))
+    rows.append(dict(name="loss", route="cuda",
+                     source="legslam_torch/csrc/loss.cu", replaces=None,
+                     launches=mapper_launches["loss"],
+                     query_launches=query_launches["loss"],
+                     visual_launches=visual_launches["loss"],
+                     ladder_launches=ladder_launches["loss"],
+                     undistort_launches=undistort_launches["loss"],
+                     inertial_launches=inertial_launches["loss"],
+                     eval_launches=eval_launches["loss"],
+                     deploy_launches=None,
+                     max_abs_err=loss_errs["grads"],
+                     loss_rel_err=loss_errs["loss"], ms=pair_ms,
+                     fwd_ms=loss_times["fwd"], bwd_ms=loss_times["bwd"],
+                     plain_ms=loss_times["fwd_plain"] +
+                     loss_times["bwd_plain"], bound_ms=pair_bound,
+                     bound_by=loss_b["fwd"]["bound_by"], library_ms=None))
     for name, tpu in (("sort_keys", "legslam_tpu/ops/pallas/sort.py:111"),
                       ("sort_kv", "legslam_tpu/ops/pallas/sort.py:116")):
         rows.append(dict(name=name, route="cuda",

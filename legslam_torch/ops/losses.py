@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from legslam_torch.config import SSIM_C1, SSIM_C2, SSIM_SIGMA, SSIM_WINDOW
+from legslam_torch.ops.cuda import loss as loss_kernels
 
 
 def l1_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -144,8 +145,26 @@ def mapping_loss(render_color: torch.Tensor, gt_color: torch.Tensor,
       (1-λ)*L1(img) + λ*(1-SSIM(img)) + mean_cos(LF) + L1(depth)
 
     The undistortion mask multiplies only the rendered tensors; the +cos
-    sign is intentional (see the module docstring).
+    sign is intentional (see the module docstring). CPU tensors take
+    mapping_loss_plain; CUDA tensors the loss kernels
+    (ops/cuda/loss.py: the same terms in float32, with their gradient),
+    which raise for operands they do not take.
     """
+    if render_color.device.type == "cpu":
+        return mapping_loss_plain(render_color, gt_color, render_lf, gt_lf,
+                                  render_depth, gt_depth, mask, lambda_dssim)
+    return loss_kernels.mapping_loss_cuda(
+        render_color, gt_color, render_lf, gt_lf, render_depth, gt_depth,
+        mask, lambda_dssim)
+
+
+def mapping_loss_plain(render_color: torch.Tensor, gt_color: torch.Tensor,
+                       render_lf: torch.Tensor | None,
+                       gt_lf: torch.Tensor | None,
+                       render_depth: torch.Tensor, gt_depth: torch.Tensor,
+                       mask: torch.Tensor, lambda_dssim: float
+                       ) -> torch.Tensor:
+    """mapping_loss in eager PyTorch, differentiated by autograd."""
     m = mask[..., None] if mask.ndim == 2 else mask
     pc = render_color * m
     loss = (1.0 - lambda_dssim) * l1_loss(pc, gt_color) + \
